@@ -1,4 +1,4 @@
-"""Nonhydrostatic split-explicit RK3 dynamics, dry path (port of
+"""Nonhydrostatic split-explicit RK3 dynamics (port of
 mpas_tpu/cores/atmosphere/nhyd.py).
 
 ref: src/core_atmosphere/dynamics/mpas_atm_time_integration.F
@@ -10,12 +10,15 @@ ref: src/core_atmosphere/dynamics/mpas_atm_time_integration.F
   acoustic_step          <- atm_advance_acoustic_step_work (:2447)
   divergence_damping_3d  <- atm_divergence_damping_3d (:2726)
   recover_large_step     <- atm_recover_large_step_variables_work (:2909)
+  compute_moist_coefficients <- atm_compute_moist_coefficients (:1862)
 
 Layout: levels minor, (nCells, nz) and (nCells, nz+1); horizontal stencils
-are destination-side gathers over the whole column. Dry path: cqu=cqw=1,
-qtot=0, no diabatic tendency. Where the reference rebinds a name to an
-updated copy (`x.at[:, 0].set(0.0)`), this port writes into the freshly
-computed tensor in place.
+are destination-side gathers over the whole column. The moist coupling
+(cqu, cqw, qtot, rt_diabatic_tend) enters through optional arguments whose
+default None is the dry path (cqu=cqw=1, qtot=0, no diabatic tendency),
+which then runs none of the moist terms. Where the reference rebinds a
+name to an updated copy (`x.at[:, 0].set(0.0)`), this port writes into the
+freshly computed tensor in place.
 """
 
 from __future__ import annotations
@@ -175,7 +178,7 @@ class EulerTends(NamedTuple):
     tend_rho: Any
 
 
-def _check_dry_config(cfg: AtmConfig):
+def _check_ported_config(cfg: AtmConfig):
     unported = {"config_v_mom_eddy_visc2": cfg.config_v_mom_eddy_visc2 > 0.0,
                 "config_v_theta_eddy_visc2":
                     cfg.config_v_theta_eddy_visc2 > 0.0,
@@ -185,15 +188,31 @@ def _check_dry_config(cfg: AtmConfig):
         raise NotImplementedError(f"not ported: {', '.join(on)}")
 
 
+def compute_moist_coefficients(grid: AtmGrid, scalars):
+    """Moisture coupling coefficients (ref: atm_compute_moist_coefficients,
+    mpas_atm_time_integration.F:1862-1933): qtot = qv+qc+qr (the first
+    three scalars) at cells, cqw = 1/(1+qtot) at cell interfaces,
+    cqu = 1/(1+qtot) at edges. Returns (qtot (nC,nz), cqw (nC,nz+1),
+    cqu (nE,nz))."""
+    mesh = grid.mesh
+    qtot = scalars[..., :3].sum(-1)
+    cqw = 1.0 / (1.0 + F.pad(0.5 * (qtot[:, 1:] + qtot[:, :-1]), (1, 1)))
+    c1, c2 = mesh.cellsOnEdge[:, 0], mesh.cellsOnEdge[:, 1]
+    cqu = 1.0 / (1.0 + 0.5 * (qtot[c1] + qtot[c2]))
+    return qtot, cqw, cqu
+
+
 def compute_dyn_tend(grid: AtmGrid, cfg: AtmConfig, rk_step: int, dt,
                      u, w, theta_m, rho_zz, diag: AtmSolveDiag,
                      ru, rw, ru_save, rw_save, theta_m_save, rho_p_save,
                      pressure_p, ur_cell, vr_cell,
-                     euler: EulerTends | None):
-    """Dry large-step tendencies. Returns (tend_u, tend_rho, tend_theta,
-    tend_w_raw, h_divergence, euler); tend_w_raw is the physical-w
-    tendency before the omega conversion of set_smlstep_pert_variables."""
-    _check_dry_config(cfg)
+                     euler: EulerTends | None, cqu=None, cqw=None,
+                     qtot=None, rt_diabatic_tend=None):
+    """Large-step tendencies; the moist arguments default to the dry path.
+    Returns (tend_u, tend_rho, tend_theta, tend_w_raw, h_divergence,
+    euler); tend_w_raw is the physical-w tendency before the omega
+    conversion of set_smlstep_pert_variables."""
+    _check_ported_config(cfg)
     mesh = grid.mesh
     vg = grid.vert
     nz = vg.nz
@@ -218,7 +237,11 @@ def compute_dyn_tend(grid: AtmGrid, cfg: AtmConfig, rk_step: int, dt,
     # --- rk_step 1: tend_rho, dpdz, kdiff (ref :4737-4766) -----------------
     if rk_step == 1:
         tend_rho = -h_divergence - rdzw * (rw[:, 1:] - rw[:, :-1])
-        dpdz = -gravity * rho_p_save      # dry: qtot=0 (ref :4763)
+        if qtot is None:
+            dpdz = -gravity * rho_p_save      # dry: qtot=0 (ref :4763)
+        else:
+            dpdz = -gravity * (grid.rho_base * qtot
+                               + rho_p_save * (1.0 + qtot))   # (ref :4763)
         if smag:
             kdiff = smagorinsky_kdiff(grid, cfg, u, diag.v, dt)
         else:
@@ -253,6 +276,8 @@ def compute_dyn_tend(grid: AtmGrid, cfg: AtmConfig, rk_step: int, dt,
         zz_edge = 0.5 * (grid.zz[c1] + grid.zz[c2])
         tend_u_euler = -((pressure_p[c2] - pressure_p[c1]) * r_dc / zz_edge
                          - 0.5 * grid.zxu * (dpdz[c1] + dpdz[c2]))
+        if cqu is not None:
+            tend_u_euler = cqu * tend_u_euler
 
         r_dv = torch.minimum(mesh.invDvEdge, 4.0 * mesh.invDcEdge)[:, None]
         delsq_u = (diag.divergence[c2] - diag.divergence[c1]) * r_dc \
@@ -353,7 +378,10 @@ def compute_dyn_tend(grid: AtmGrid, cfg: AtmConfig, rk_step: int, dt,
         dpdz_int = to_interface(dpdz, fzm, fzp)
         pgrad = F.pad((pressure_p[:, 1:] - pressure_p[:, :-1]) * rdzu[1:nz],
                       (1, 1))
-        tend_w_euler = tend_w_euler - (pgrad - dpdz_int)
+        pgrad = pgrad - dpdz_int
+        if cqw is not None:
+            pgrad = cqw * pgrad
+        tend_w_euler = tend_w_euler - pgrad
         tend_w_euler[:, 0] = 0.0
         tend_w_euler[:, nz] = 0.0
 
@@ -376,6 +404,10 @@ def compute_dyn_tend(grid: AtmGrid, cfg: AtmConfig, rk_step: int, dt,
 
     tend_theta = tend_theta * inva - rdzw * (wdtz[:, 1:] - wdtz[:, :-1])
     tend_theta = tend_theta + tend_theta_euler
+    if rt_diabatic_tend is not None:
+        # physics heating applied during the RK stages, removed again by
+        # recover_large_step_variables at rk_step 3 (ref :5352, :3025)
+        tend_theta = tend_theta + rho_zz * rt_diabatic_tend
 
     new_euler = EulerTends(tend_u_euler=tend_u_euler,
                            tend_w_euler=tend_w_euler,
@@ -400,8 +432,9 @@ class VertImpCoefs(NamedTuple):
 
 
 def vert_imp_coefs(grid: AtmGrid, cfg: AtmConfig, dts, theta_m, exner,
-                   rtheta_p) -> VertImpCoefs:
-    """ref: atm_compute_vert_imp_coefs_work (:2012), dry (qtot=0, cqw=1)."""
+                   rtheta_p, qtot=None, cqw=None) -> VertImpCoefs:
+    """ref: atm_compute_vert_imp_coefs_work (:2012); qtot (nC, nz) and cqw
+    (nC, nz+1) default to the dry path (qtot=0, cqw=1)."""
     vg = grid.vert
     nz = vg.nz
     fzm, fzp, rdzw, rdzu = vg.fzm, vg.fzp, vg.rdzw, vg.rdzu
@@ -414,10 +447,15 @@ def vert_imp_coefs(grid: AtmGrid, cfg: AtmConfig, dts, theta_m, exner,
     t_int = fzm[1:nz] * theta_m[:, 1:] + fzp[1:nz] * theta_m[:, :-1]
 
     cofwr = F.pad(0.5 * dtseps * gravity * zz_int, (1, 1))
-    cofwz = F.pad(dtseps * C2 * zz_int * rdzu[1:nz] * p_int, (1, 1))
+    cofwz = dtseps * C2 * zz_int * rdzu[1:nz]
+    if cqw is not None:
+        cofwz = cofwz * cqw[:, 1:nz]
+    cofwz = F.pad(cofwz * p_int, (1, 1))
     coftz = F.pad(dtseps * t_int, (1, 1))
-    cofwt = 0.5 * dtseps * RCV * zz * gravity * grid.rho_base * exner \
-        / ((grid.rtheta_base + rtheta_p) * grid.exner_base)
+    cofwt = 0.5 * dtseps * RCV * zz * gravity * grid.rho_base
+    if qtot is not None:
+        cofwt = cofwt / (1.0 + qtot)
+    cofwt = cofwt * exner / ((grid.rtheta_base + rtheta_p) * grid.exner_base)
 
     # tridiagonal coefficients at interfaces i=1..nz-1 (ref :2092-2121)
     a_mid = -cofwz[:, 1:nz] * coftz[:, 0:nz - 1] * rdzw[:nz - 1] \
@@ -473,26 +511,29 @@ class AcousticVars(NamedTuple):
 class AcousticHoist(NamedTuple):
     """Edge quantities fixed across a substep's acoustic iterations."""
     zz_pair: Any      # (nE, nz)  0.5*(zz[c1]+zz[c2])
-    pg_coef: Any      # (nE, nz)  0.5*C2*(exner[c1]+exner[c2])
+    pg_coef: Any      # (nE, nz)  cqu*0.5*C2*(exner[c1]+exner[c2])
     th_edge: Any      # (nE, nz)  0.5*(theta_m[c1]+theta_m[c2])
     th_sum: Any       # (nE, nz)  theta_m[c1]+theta_m[c2]
 
 
-def acoustic_hoist(grid: AtmGrid, theta_m, exner) -> AcousticHoist:
+def acoustic_hoist(grid: AtmGrid, theta_m, exner,
+                   cqu=None) -> AcousticHoist:
     """Substep-invariant edge quantities of the acoustic loop
-    (ref :2480-2504, :2536-2549, :2726-2805)."""
+    (ref :2480-2504, :2536-2549, :2726-2805); cqu (nE, nz) defaults to the
+    dry path (cqu=1)."""
     mesh = grid.mesh
     c1, c2 = mesh.cellsOnEdge[:, 0], mesh.cellsOnEdge[:, 1]
     th_sum = theta_m[c1] + theta_m[c2]
+    coef = 0.5 * C2 if cqu is None else cqu * 0.5 * C2
     return AcousticHoist(zz_pair=0.5 * (grid.zz[c1] + grid.zz[c2]),
-                         pg_coef=0.5 * C2 * (exner[c1] + exner[c2]),
+                         pg_coef=coef * (exner[c1] + exner[c2]),
                          th_edge=0.5 * th_sum, th_sum=th_sum)
 
 
 def acoustic_step(grid: AtmGrid, cfg: AtmConfig, coefs: VertImpCoefs,
                   av: AcousticVars, dts,
                   theta_m, exner, w, rho_zz, rw, rw_save, ru, ru_save,
-                  tend_ru, tend_rho, tend_rt, tend_rw,
+                  tend_ru, tend_rho, tend_rt, tend_rw, cqu=None,
                   hoist: AcousticHoist | None = None, damp: bool = False):
     """One forward-backward acoustic substep (ref :2447-2723).
 
@@ -500,14 +541,16 @@ def acoustic_step(grid: AtmGrid, cfg: AtmConfig, coefs: VertImpCoefs,
     reference's small_step==1 special case. damp=True folds the previous
     iteration's 3D divergence damping (ref :2726-2805) into this step's
     entry; the last iteration's damping is applied by the caller. The
-    cell-local column update runs in kernel K1 (kernels/acoustic.py)."""
+    cell-local column update runs in kernel K1 (kernels/acoustic.py).
+    cqu enters only through the hoisted pressure-gradient coefficient, so
+    it is read only when `hoist` is not given."""
     mesh = grid.mesh
     vg = grid.vert
     nz = vg.nz
     fzm, fzp, rdzw = vg.fzm, vg.fzp, vg.rdzw
     c1, c2 = mesh.cellsOnEdge[:, 0], mesh.cellsOnEdge[:, 1]
     if hoist is None:
-        hoist = acoustic_hoist(grid, theta_m, exner)
+        hoist = acoustic_hoist(grid, theta_m, exner, cqu)
 
     ru_p_in = av.ru_p
     if damp:
@@ -568,8 +611,10 @@ def divergence_damping_3d(grid: AtmGrid, cfg: AtmConfig, av: AcousticVars,
 def recover_large_step_variables(grid: AtmGrid, cfg: AtmConfig,
                                  av: AcousticVars, rk_step: int, dt, ns,
                                  rho_p_save, rtheta_p_save, ru_save, rw_save,
-                                 theta_m):
-    """ref: atm_recover_large_step_variables_work (:2909), dry.
+                                 theta_m, rt_diabatic_tend=None):
+    """ref: atm_recover_large_step_variables_work (:2909). At rk_step 3 the
+    diabatic heating rt_diabatic_tend (None: dry) is taken out of
+    rtheta_p again (ref :3025).
     Returns (u, w, theta_m, rho_zz, ru, rw, rho_p, rtheta_p, exner,
     pressure_p, ruAvg, wwAvg); exner/pressure_p are None unless rk_step 3."""
     mesh = grid.mesh
@@ -588,6 +633,8 @@ def recover_large_step_variables(grid: AtmGrid, cfg: AtmConfig,
     rho_int = to_interface(rho_zz, fzm, fzp)
 
     rtheta_p = rtheta_p_save + av.rtheta_pp
+    if rk_step == 3 and rt_diabatic_tend is not None:
+        rtheta_p = rtheta_p - dt * rho_zz * rt_diabatic_tend
     theta_m_new = (rtheta_p + grid.rtheta_base) / rho_zz
     if rk_step == 3:
         exner = (grid.zz * (rgas / p0)

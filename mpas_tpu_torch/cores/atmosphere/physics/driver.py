@@ -1,0 +1,58 @@
+"""Microphysics coupling driver: dycore variables <-> column scheme (port of
+mpas_tpu/cores/atmosphere/physics/driver.py, the Kessler path).
+
+ref: src/core_atmosphere/physics/mpas_atmphys_driver_microphysics.F
+(driver_microphysics, called inside atm_srk3 after scalar transport) and
+mpas_atmphys_interface.F:536-560 (microphysics_from_MPAS) / :695-717
+(microphysics_to_MPAS). State tensors are already (nCells, nz).
+
+Scalar layout (ref: Registry.xml index_qv/index_qc/index_qr):
+scalars[..., 0] = qv, [..., 1] = qc, [..., 2] = qr.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mpas_tpu_torch.constants import cp, p0, rgas, rvord
+from mpas_tpu_torch.cores.atmosphere.physics.kessler import kessler
+
+IDX_QV, IDX_QC, IDX_QR = 0, 1, 2
+RCV = rgas / (cp - rgas)
+
+
+def microphysics_step(grid, theta_m, rho_zz, scalars, exner, dt):
+    """Apply Kessler microphysics to one model state.
+
+    Returns (theta_m, scalars, rtheta_p, exner, pressure_p,
+    rt_diabatic_tend, rain_m); all are new tensors, the inputs are not
+    written.
+
+    As microphysics_from_MPAS / microphysics_to_MPAS: the scheme sees dry
+    density rho = zz*rho_zz (interface.F:548), dry potential temperature
+    th = theta_m/(1+Rv/Rd qv) (:549) and the Exner function; afterwards
+    theta_m, rtheta_p, exner and pressure_p are rebuilt (:704-717) and the
+    diabatic theta_m tendency is returned for the next step's
+    rt_diabatic_tend coupling (:703-706)."""
+    qv = torch.clamp(scalars[..., IDX_QV], min=0.0)
+    qc = torch.clamp(scalars[..., IDX_QC], min=0.0)
+    qr = torch.clamp(scalars[..., IDX_QR], min=0.0)
+    rho_dry = grid.zz * rho_zz
+    th = theta_m / (1.0 + rvord * qv)
+    dz = grid.zgrid[:, 1:] - grid.zgrid[:, :-1]
+
+    th, qv, qc, qr, rain = kessler(th, qv, qc, qr, rho_dry, exner, dz, dt)
+
+    theta_m_new = th * (1.0 + rvord * qv)
+    rt_diabatic_tend = (theta_m_new - theta_m) / dt
+    scalars = torch.cat([torch.stack([qv, qc, qr], dim=-1),
+                         scalars[..., IDX_QR + 1:]], dim=-1)
+
+    rtheta_p = rho_zz * theta_m_new - grid.rtheta_base
+    exner_new = (grid.zz * (rgas / p0)
+                 * (rtheta_p + grid.rtheta_base)) ** RCV
+    pressure_p = grid.zz * rgas * (exner_new * rtheta_p
+                                   + (exner_new - grid.exner_base)
+                                   * grid.rtheta_base)
+    return (theta_m_new, scalars, rtheta_p, exner_new, pressure_p,
+            rt_diabatic_tend, rain)

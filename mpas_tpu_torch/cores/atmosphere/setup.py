@@ -19,6 +19,7 @@ import torch
 
 from mpas_tpu_torch.constants import pii
 from mpas_tpu_torch.containers import to_device
+from mpas_tpu_torch.mesh.build import _wrap_disp
 from mpas_tpu_torch.mesh.mesh import Mesh
 
 
@@ -112,8 +113,12 @@ def _cell_xyz(mesh: Mesh):
 
 
 def _tangent_coords(mesh: Mesh, origin_xyz, points_xyz):
-    """Tangent-plane coordinates of points about origin on the sphere:
-    azimuth preserved, radial chord rescaled to great-circle arc length."""
+    """Local (x, y) coordinates of points about origin. On the sphere:
+    tangent-plane azimuth preserved, radial chord rescaled to great-circle
+    arc length. On the plane: the minimal-image displacement."""
+    if not mesh.on_sphere:
+        d = _wrap_disp(points_xyz - origin_xyz, mesh.x_period, mesh.y_period)
+        return d[..., 0], d[..., 1]
     o = origin_xyz / np.linalg.norm(origin_xyz, axis=-1, keepdims=True)
     p = points_xyz / np.linalg.norm(points_xyz, axis=-1, keepdims=True)
     z = np.array([0.0, 0.0, 1.0])
@@ -277,20 +282,25 @@ def build_reconstruct_weights(mesh: Mesh):
     nEoC = np.asarray(mesh.nEdgesOnCell)
     eoc = np.asarray(mesh.edgesOnCell)
     ang = np.asarray(mesh.angleEdge)
-    latE, lonE = np.asarray(mesh.latEdge), np.asarray(mesh.lonEdge)
-    latC, lonC = np.asarray(mesh.latCell), np.asarray(mesh.lonCell)
-    ee = np.stack([-np.sin(lonE), np.cos(lonE), np.zeros_like(lonE)], -1)
-    ne = np.stack([-np.sin(latE) * np.cos(lonE),
-                   -np.sin(latE) * np.sin(lonE), np.cos(latE)], -1)
-    nvec3 = np.cos(ang)[:, None] * ee + np.sin(ang)[:, None] * ne
-    ec = np.stack([-np.sin(lonC), np.cos(lonC), np.zeros_like(lonC)], -1)
-    ncv = np.stack([-np.sin(latC) * np.cos(lonC),
-                    -np.sin(latC) * np.sin(lonC), np.cos(latC)], -1)
-    # closed-form pseudo-inverse (N^T N)^{-1} N^T: a 2x2 solve per cell
     j = np.arange(mE)[None, :]
     valid = (j < nEoC[:, None]).astype(np.float64)
-    nx = np.einsum("cmk,ck->cm", nvec3[eoc], ec) * valid
-    ny = np.einsum("cmk,ck->cm", nvec3[eoc], ncv) * valid
+    if mesh.on_sphere:
+        # edge normals in 3-D, projected on each cell's (east, north)
+        latE, lonE = np.asarray(mesh.latEdge), np.asarray(mesh.lonEdge)
+        latC, lonC = np.asarray(mesh.latCell), np.asarray(mesh.lonCell)
+        ee = np.stack([-np.sin(lonE), np.cos(lonE), np.zeros_like(lonE)], -1)
+        ne = np.stack([-np.sin(latE) * np.cos(lonE),
+                       -np.sin(latE) * np.sin(lonE), np.cos(latE)], -1)
+        nvec3 = np.cos(ang)[:, None] * ee + np.sin(ang)[:, None] * ne
+        ec = np.stack([-np.sin(lonC), np.cos(lonC), np.zeros_like(lonC)], -1)
+        ncv = np.stack([-np.sin(latC) * np.cos(lonC),
+                        -np.sin(latC) * np.sin(lonC), np.cos(latC)], -1)
+        nx = np.einsum("cmk,ck->cm", nvec3[eoc], ec) * valid
+        ny = np.einsum("cmk,ck->cm", nvec3[eoc], ncv) * valid
+    else:
+        nx = np.cos(ang[eoc]) * valid
+        ny = np.sin(ang[eoc]) * valid
+    # closed-form pseudo-inverse (N^T N)^{-1} N^T: a 2x2 solve per cell
     g11 = np.sum(nx * nx, axis=1)
     g12 = np.sum(nx * ny, axis=1)
     g22 = np.sum(ny * ny, axis=1)

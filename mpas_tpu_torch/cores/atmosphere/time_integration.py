@@ -1,5 +1,6 @@
-"""Split-explicit RK3 time stepping of the dry nonhydrostatic core
-(port of mpas_tpu/cores/atmosphere/time_integration.py).
+"""Split-explicit RK3 time stepping of the nonhydrostatic core, dry or
+moist with Kessler microphysics (port of
+mpas_tpu/cores/atmosphere/time_integration.py).
 
 ref: atm_srk3, src/core_atmosphere/dynamics/mpas_atm_time_integration.F:142.
 The dynamics substeps, RK stages and acoustic substeps are plain Python
@@ -19,12 +20,14 @@ from mpas_tpu_torch.cores.atmosphere.nhyd import (AcousticVars, AtmSolveDiag,
                                                   acoustic_hoist,
                                                   acoustic_step,
                                                   compute_dyn_tend,
+                                                  compute_moist_coefficients,
                                                   divergence_damping_3d,
                                                   reconstruct_cell_winds,
                                                   recover_large_step_variables,
                                                   set_smlstep_pert_variables,
                                                   solve_diagnostics,
                                                   vert_imp_coefs)
+from mpas_tpu_torch.cores.atmosphere.physics.driver import microphysics_step
 from mpas_tpu_torch.cores.atmosphere.setup import AtmGrid
 from mpas_tpu_torch.cores.atmosphere.state import AtmDiag, AtmState
 from mpas_tpu_torch.cores.atmosphere.transport import (advance_scalars,
@@ -33,7 +36,7 @@ from mpas_tpu_torch.cores.atmosphere.transport import (advance_scalars,
 
 @dataclasses.dataclass(frozen=True)
 class AtmCarry:
-    """Everything advanced from step to step (dry path)."""
+    """Everything advanced from step to step."""
     state: AtmState
     diag: AtmDiag
     v: Any          # tangential velocity (recomputed on rk_step 3)
@@ -44,6 +47,9 @@ class AtmCarry:
     sdiag_rho_edge: Any
     ur_cell: Any
     vr_cell: Any
+    # physics coupling (ref: tend pool rt_diabatic_tend; diag_physics rainnc)
+    rt_diabatic_tend: Any   # (nC, nz) theta_m tendency of the microphysics
+    rainnc: Any             # (nC,) accumulated surface rain [m]
 
     def to(self, device, dtype) -> "AtmCarry":
         return to_device(self, device, dtype)
@@ -59,18 +65,23 @@ def init_carry(grid: AtmGrid, cfg: AtmConfig, state: AtmState,
     return AtmCarry(state=state, diag=diag, v=sd.v, sdiag_ke=sd.ke,
                     sdiag_div=sd.divergence, sdiag_vort=sd.vorticity,
                     sdiag_pv_edge=sd.pv_edge, sdiag_rho_edge=sd.rho_edge,
-                    ur_cell=ur, vr_cell=vr)
+                    ur_cell=ur, vr_cell=vr,
+                    rt_diabatic_tend=torch.zeros_like(state.theta_m),
+                    rainnc=torch.zeros_like(state.theta_m[:, 0]))
 
 
 def _check_supported(cfg: AtmConfig, state: AtmState, xch):
-    if cfg.config_microp_scheme != "off":
-        raise NotImplementedError(
-            f"config_microp_scheme={cfg.config_microp_scheme!r}: only the "
-            "dry path ('off') is ported")
-    if state.scalars.shape[-1] >= 3:
-        raise NotImplementedError(
-            "a moist state (3 or more scalars) is not ported; the dry path "
-            "carries passive scalars only")
+    scheme = cfg.config_microp_scheme
+    if scheme not in ("off", "mp_kessler", "mp_wsm6", "mp_thompson"):
+        raise ValueError(
+            f"unknown config_microp_scheme {scheme!r}; supported: 'off', "
+            "'mp_kessler', 'mp_wsm6', 'mp_thompson'")
+    if scheme in ("mp_wsm6", "mp_thompson"):
+        raise NotImplementedError(f"config_microp_scheme={scheme!r} is not "
+                                  "ported; 'off' and 'mp_kessler' are")
+    if scheme == "mp_kessler" and state.scalars.shape[-1] < 3:
+        raise ValueError("mp_kessler requires scalars (qv, qc, qr); "
+                         f"got {state.scalars.shape[-1]} scalar(s)")
     if xch is not None:
         raise NotImplementedError("exchange hooks (the distributed runner) "
                                   "are not ported")
@@ -78,7 +89,7 @@ def _check_supported(cfg: AtmConfig, state: AtmState, xch):
 
 def srk3_step(grid: AtmGrid, cfg: AtmConfig, carry: AtmCarry, dt,
               xch=None) -> AtmCarry:
-    """One full dry timestep (ref: atm_srk3 :142-1796)."""
+    """One full timestep (ref: atm_srk3 :142-1796)."""
     state1 = carry.state
     diag = carry.diag
     _check_supported(cfg, state1, xch)
@@ -111,24 +122,37 @@ def srk3_step(grid: AtmGrid, cfg: AtmConfig, carry: AtmCarry, dt,
     rho_zz_old_split = state1.rho_zz
     ruAvg_split = wwAvg_split = None
 
+    # moist coupling (ref: atm_compute_moist_coefficients :410), once per
+    # step from the time-level-1 scalars. A state carrying at least
+    # (qv, qc, qr) is moist; the dry configurations carry one passive
+    # scalar and take the dry path.
+    moist = state1.scalars.shape[-1] >= 3
+    if moist:
+        qtot, cqw, cqu = compute_moist_coefficients(grid, state1.scalars)
+        rt_diab = carry.rt_diabatic_tend
+    else:
+        qtot = cqw = cqu = rt_diab = None
+
     for sub in range(split):
         # start-of-substep saves (ref: atm_rk_integration_setup :1799)
         ru_save, rw_save = ru, rw
         rtheta_p_save, rho_p_save = rtheta_p, rho_p
         th_save = th1
 
-        coefs = vert_imp_coefs(grid, cfg, rk_sub[0], th2, exner, rtheta_p)
-        hoist = acoustic_hoist(grid, th_save, exner)
+        coefs = vert_imp_coefs(grid, cfg, rk_sub[0], th2, exner, rtheta_p,
+                               qtot, cqw)
+        hoist = acoustic_hoist(grid, th_save, exner, cqu)
         euler = None
         for rk in (1, 2, 3):
             if order == 3 and rk == 2:
                 coefs = vert_imp_coefs(grid, cfg, rk_sub[1], th2, exner,
-                                       rtheta_p)
+                                       rtheta_p, qtot, cqw)
             (tend_u, tend_rho, tend_theta, tend_w_raw, _,
              euler) = compute_dyn_tend(
                 grid, cfg, rk, dt, u2, w2, th2, rho2, sd, ru, rw,
                 ru_save, rw_save, th_save, rho_p_save, pressure_p,
-                ur_cell, vr_cell, euler)
+                ur_cell, vr_cell, euler, cqu=cqu, cqw=cqw, qtot=qtot,
+                rt_diabatic_tend=rt_diab)
             tend_rw = set_smlstep_pert_variables(grid, tend_u, tend_w_raw)
 
             zero_e = torch.zeros_like(ru)
@@ -152,7 +176,8 @@ def srk3_step(grid: AtmGrid, cfg: AtmConfig, carry: AtmCarry, dt,
             (u2, w2, th2, rho2, ru, rw, rho_p, rtheta_p, exner_new,
              pressure_p_new, ruAvg, wwAvg) = recover_large_step_variables(
                 grid, cfg, av, rk, rk_timestep[rk - 1], nsub[rk - 1],
-                rho_p_save, rtheta_p_save, ru_save, rw_save, th2)
+                rho_p_save, rtheta_p_save, ru_save, rw_save, th2,
+                rt_diabatic_tend=rt_diab)
             if rk == 3:
                 exner, pressure_p = exner_new, pressure_p_new
             sd = solve_diagnostics(grid, cfg, u2, rho2, dt,
@@ -189,6 +214,15 @@ def srk3_step(grid: AtmGrid, cfg: AtmConfig, carry: AtmCarry, dt,
                     positive_definite_only=not cfg.config_monotonic)
         scalars = sc_new
 
+    # microphysics after transport, on the new time level; its theta_m
+    # tendency feeds the next step's dynamics (ref: atm_srk3 :1654
+    # driver_microphysics)
+    rt_diab_out, rainnc = carry.rt_diabatic_tend, carry.rainnc
+    if cfg.config_microp_scheme == "mp_kessler":
+        (th2, scalars, rtheta_p, exner, pressure_p, rt_diab_out,
+         rain) = microphysics_step(grid, th2, rho2, scalars, exner, dt)
+        rainnc = rainnc + rain
+
     ur_cell, vr_cell = reconstruct_cell_winds(grid, u2)
     state2 = AtmState(u=u2, w=w2, theta_m=th2, rho_zz=rho2, scalars=scalars)
     diag2 = AtmDiag(ru=ru, rw=rw, rho_p=rho_p, rtheta_p=rtheta_p,
@@ -197,7 +231,8 @@ def srk3_step(grid: AtmGrid, cfg: AtmConfig, carry: AtmCarry, dt,
     return AtmCarry(state=state2, diag=diag2, v=sd.v, sdiag_ke=sd.ke,
                     sdiag_div=sd.divergence, sdiag_vort=sd.vorticity,
                     sdiag_pv_edge=sd.pv_edge, sdiag_rho_edge=sd.rho_edge,
-                    ur_cell=ur_cell, vr_cell=vr_cell)
+                    ur_cell=ur_cell, vr_cell=vr_cell,
+                    rt_diabatic_tend=rt_diab_out, rainnc=rainnc)
 
 
 def run_steps(grid: AtmGrid, cfg: AtmConfig, carry: AtmCarry, dt,

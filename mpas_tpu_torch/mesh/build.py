@@ -1,5 +1,5 @@
-"""Host-side mesh construction: raw spherical Voronoi topology -> Mesh
-(port of mpas_tpu/mesh/build.py, spherical meshes only).
+"""Host-side mesh construction: raw Voronoi topology on the sphere or the
+(periodic) plane -> Mesh (port of mpas_tpu/mesh/build.py).
 
 Given cell centres, vertex positions and per-cell vertex rings, derive
 every connectivity, geometry, sign and TRiSK-weight field. Runs once on
@@ -45,42 +45,85 @@ def _normalize(v):
     return v / np.linalg.norm(v, axis=-1, keepdims=True)
 
 
-def _midpoint(p, q):
-    return _normalize(0.5 * (p + q))
+def _wrap_disp(d, x_period, y_period):
+    """Minimal-image displacement on an (optionally) periodic plane."""
+    d = np.array(d, dtype=np.float64, copy=True)
+    if x_period > 0.0:
+        d[..., 0] -= x_period * np.round(d[..., 0] / x_period)
+    if y_period > 0.0:
+        d[..., 1] -= y_period * np.round(d[..., 1] / y_period)
+    return d
 
 
-def _tangent_angle(origin, basis_e, basis_n, point):
-    """Angle of (point - origin) in the (basis_e, basis_n) tangent frame."""
-    d = point - origin
-    return np.arctan2(np.sum(d * basis_n, axis=-1),
-                      np.sum(d * basis_e, axis=-1))
+class _Geom:
+    """One geometry interface over the sphere and the (periodic) plane."""
 
+    def __init__(self, on_sphere, x_period=0.0, y_period=0.0):
+        self.on_sphere = on_sphere
+        self.x_period = x_period
+        self.y_period = y_period
 
-def _local_frame(p):
-    """(east, north) tangent basis at p (consistent frame at the poles)."""
-    up = _normalize(p)
-    z = np.zeros_like(p)
-    z[..., 2] = 1.0
-    east = np.cross(z, up)
-    nrm = np.linalg.norm(east, axis=-1, keepdims=True)
-    polar = nrm[..., 0] < 1e-12
-    if np.any(polar):
-        x = np.zeros_like(p)
-        x[..., 0] = 1.0
-        east[polar] = np.cross(x, up[polar])
+    def distance(self, p, q):
+        if self.on_sphere:
+            return _sphere_arc(p, q)
+        return np.linalg.norm(_wrap_disp(q - p, self.x_period, self.y_period),
+                              axis=-1)
+
+    def midpoint(self, p, q):
+        if self.on_sphere:
+            return _normalize(0.5 * (p + q))
+        return p + 0.5 * _wrap_disp(q - p, self.x_period, self.y_period)
+
+    def tri_area(self, p1, p2, p3):
+        """Signed area of a triangle, positive counterclockwise."""
+        if self.on_sphere:
+            return _sphere_tri_area(p1, p2, p3)
+        d2 = _wrap_disp(p2 - p1, self.x_period, self.y_period)
+        d3 = _wrap_disp(p3 - p1, self.x_period, self.y_period)
+        return 0.5 * (d2[..., 0] * d3[..., 1] - d2[..., 1] * d3[..., 0])
+
+    def tangent_angle(self, origin, basis_e, basis_n, point):
+        """Angle of (point - origin) in the (basis_e, basis_n) tangent frame."""
+        if self.on_sphere:
+            d = point - origin
+        else:
+            d = _wrap_disp(point - origin, self.x_period, self.y_period)
+        return np.arctan2(np.sum(d * basis_n, axis=-1),
+                          np.sum(d * basis_e, axis=-1))
+
+    def local_frame(self, p):
+        """(east, north) tangent basis at p (consistent frame at the poles)."""
+        if not self.on_sphere:
+            e = np.zeros_like(p)
+            e[..., 0] = 1.0
+            n = np.zeros_like(p)
+            n[..., 1] = 1.0
+            return e, n
+        up = _normalize(p)
+        z = np.zeros_like(p)
+        z[..., 2] = 1.0
+        east = np.cross(z, up)
         nrm = np.linalg.norm(east, axis=-1, keepdims=True)
-    east = east / nrm
-    north = np.cross(up, east)
-    return east, north
+        polar = nrm[..., 0] < 1e-12
+        if np.any(polar):
+            x = np.zeros_like(p)
+            x[..., 0] = 1.0
+            east[polar] = np.cross(x, up[polar])
+            nrm = np.linalg.norm(east, axis=-1, keepdims=True)
+        east = east / nrm
+        north = np.cross(up, east)
+        return east, north
 
 
-def build_mesh(cell_xyz, vertex_xyz, vertices_on_cell, *,
-               sphere_radius=1.0) -> Mesh:
-    """Construct a complete spherical Mesh from raw Voronoi topology.
+def build_mesh(cell_xyz, vertex_xyz, vertices_on_cell, *, on_sphere=True,
+               sphere_radius=1.0, x_period=0.0, y_period=0.0) -> Mesh:
+    """Construct a complete Mesh from raw Voronoi topology.
 
-    cell_xyz (nCells, 3) and vertex_xyz (nVertices, 3) are unit vectors;
-    vertices_on_cell is a list of per-cell vertex index rings, oriented
-    counterclockwise here."""
+    cell_xyz (nCells, 3) and vertex_xyz (nVertices, 3) are unit vectors on
+    the sphere, or points of the z=0 plane with on_sphere=False (periodic
+    in x and/or y where x_period/y_period > 0); vertices_on_cell is a list
+    of per-cell vertex index rings, oriented counterclockwise here."""
+    geom = _Geom(on_sphere, x_period, y_period)
     cell_xyz = np.asarray(cell_xyz, dtype=np.float64)
     vertex_xyz = np.asarray(vertex_xyz, dtype=np.float64)
     nCells = cell_xyz.shape[0]
@@ -91,8 +134,8 @@ def build_mesh(cell_xyz, vertex_xyz, vertices_on_cell, *,
     for c in range(nCells):
         ring = voc[c]
         pts = vertex_xyz[ring]
-        area = np.sum(_sphere_tri_area(cell_xyz[c][None, :], pts,
-                                       np.roll(pts, -1, axis=0)))
+        area = np.sum(geom.tri_area(cell_xyz[c][None, :], pts,
+                                    np.roll(pts, -1, axis=0)))
         if area < 0.0:
             voc[c] = ring[::-1]
     maxEdges = max(len(r) for r in voc)
@@ -157,18 +200,18 @@ def build_mesh(cell_xyz, vertex_xyz, vertices_on_cell, *,
     cellsOnVertex = np.full((nVertices, vertexDegree), PAD, dtype=np.int64)
     edgesOnVertex = np.full((nVertices, vertexDegree), PAD, dtype=np.int64)
     cellsOnVertexMask = np.zeros((nVertices, vertexDegree))
-    ve_east, ve_north = _local_frame(vertex_xyz)
+    ve_east, ve_north = geom.local_frame(vertex_xyz)
     for v in range(nVertices):
         cl = cov_lists[v]
-        ang = _tangent_angle(vertex_xyz[v], ve_east[v], ve_north[v],
-                             cell_xyz[cl])
+        ang = geom.tangent_angle(vertex_xyz[v], ve_east[v], ve_north[v],
+                                 cell_xyz[cl])
         order = np.argsort(ang)
         cellsOnVertex[v, :len(cl)] = np.asarray(cl)[order]
         cellsOnVertexMask[v, :len(cl)] = 1.0
         el = eov_lists[v]
-        mid = _midpoint(vertex_xyz[verticesOnEdge[el, 0]],
-                        vertex_xyz[verticesOnEdge[el, 1]])
-        ang = _tangent_angle(vertex_xyz[v], ve_east[v], ve_north[v], mid)
+        mid = geom.midpoint(vertex_xyz[verticesOnEdge[el, 0]],
+                            vertex_xyz[verticesOnEdge[el, 1]])
+        ang = geom.tangent_angle(vertex_xyz[v], ve_east[v], ve_north[v], mid)
         order = np.argsort(ang)
         edgesOnVertex[v, :len(el)] = np.asarray(el)[order]
 
@@ -181,13 +224,15 @@ def build_mesh(cell_xyz, vertex_xyz, vertices_on_cell, *,
     c1, c2 = cellsOnEdge[:, 0], cellsOnEdge[:, 1]
     v1, v2 = verticesOnEdge[:, 0], verticesOnEdge[:, 1]
     edge_xyz = np.where(interior[:, None],
-                        _midpoint(cell_xyz[c1], cell_xyz[np.maximum(c2, 0)]),
-                        _midpoint(vertex_xyz[v1], vertex_xyz[v2]))
-    edge_xyz = _normalize(edge_xyz)
-    dvEdge = _sphere_arc(vertex_xyz[v1], vertex_xyz[v2])
+                        geom.midpoint(cell_xyz[c1],
+                                      cell_xyz[np.maximum(c2, 0)]),
+                        geom.midpoint(vertex_xyz[v1], vertex_xyz[v2]))
+    if on_sphere:
+        edge_xyz = _normalize(edge_xyz)
+    dvEdge = geom.distance(vertex_xyz[v1], vertex_xyz[v2])
     dcEdge = np.where(interior,
-                      _sphere_arc(cell_xyz[c1], cell_xyz[np.maximum(c2, 0)]),
-                      2.0 * _sphere_arc(cell_xyz[c1], edge_xyz))
+                      geom.distance(cell_xyz[c1], cell_xyz[np.maximum(c2, 0)]),
+                      2.0 * geom.distance(cell_xyz[c1], edge_xyz))
 
     # --- areas -------------------------------------------------------------
     areaCell = np.zeros(nCells)
@@ -196,7 +241,7 @@ def build_mesh(cell_xyz, vertex_xyz, vertices_on_cell, *,
         jn = (j + 1) % np.maximum(nEdgesOnCell, 1)
         va = verticesOnCell[np.arange(nCells), np.minimum(j, nEdgesOnCell - 1)]
         vb = verticesOnCell[np.arange(nCells), jn]
-        tri = _sphere_tri_area(cell_xyz, vertex_xyz[va], vertex_xyz[vb])
+        tri = geom.tri_area(cell_xyz, vertex_xyz[va], vertex_xyz[vb])
         areaCell += np.where(valid, tri, 0.0)
 
     # kites: for vertex v = verticesOnCell[c, j] the kite is the quad (cell
@@ -212,8 +257,8 @@ def build_mesh(cell_xyz, vertex_xyz, vertices_on_cell, *,
     xv = vertex_xyz[vv]
     xe_p = edge_xyz[e_prev]
     xe_n = edge_xyz[e_next]
-    kite = np.abs(_sphere_tri_area(xc, xe_p, xv)) \
-        + np.abs(_sphere_tri_area(xc, xv, xe_n))
+    kite = np.abs(geom.tri_area(xc, xe_p, xv)) \
+        + np.abs(geom.tri_area(xc, xv, xe_n))
     for (v, c, k) in zip(vv, rows, kite):
         kite_cv[(int(v), int(c))] = float(k)
 
@@ -244,6 +289,8 @@ def build_mesh(cell_xyz, vertex_xyz, vertices_on_cell, *,
 
     # --- lat/lon and angleEdge --------------------------------------------
     def latlon(p):
+        if not on_sphere:
+            return np.zeros(p.shape[0]), np.zeros(p.shape[0])
         pn = _normalize(p)
         lat = np.arcsin(np.clip(pn[:, 2], -1.0, 1.0))
         lon = np.mod(np.arctan2(pn[:, 1], pn[:, 0]), 2.0 * np.pi)
@@ -255,11 +302,14 @@ def build_mesh(cell_xyz, vertex_xyz, vertices_on_cell, *,
 
     # normal = unit displacement c1 -> c2 (interior) or c1 -> edge (boundary)
     tgt = np.where(interior[:, None], cell_xyz[np.maximum(c2, 0)], edge_xyz)
-    nvec = tgt - cell_xyz[c1]
-    up = _normalize(edge_xyz)
-    nvec = nvec - np.sum(nvec * up, axis=-1, keepdims=True) * up
+    if on_sphere:
+        nvec = tgt - cell_xyz[c1]
+        up = _normalize(edge_xyz)
+        nvec = nvec - np.sum(nvec * up, axis=-1, keepdims=True) * up
+    else:
+        nvec = _wrap_disp(tgt - cell_xyz[c1], x_period, y_period)
     nvec = _normalize(nvec)
-    e_east, e_north = _local_frame(edge_xyz)
+    e_east, e_north = geom.local_frame(edge_xyz)
     angleEdge = np.arctan2(np.sum(nvec * e_north, axis=-1),
                            np.sum(nvec * e_east, axis=-1))
 
@@ -317,8 +367,8 @@ def build_mesh(cell_xyz, vertex_xyz, vertices_on_cell, *,
     return Mesh(
         nCells=nCells, nEdges=nEdges, nVertices=nVertices,
         maxEdges=maxEdges, maxEdges2=maxEdges2, vertexDegree=vertexDegree,
-        on_sphere=True, sphere_radius=float(sphere_radius),
-        x_period=0.0, y_period=0.0,
+        on_sphere=bool(on_sphere), sphere_radius=float(sphere_radius),
+        x_period=float(x_period), y_period=float(y_period),
         cellsOnEdge=i(np.maximum(cellsOnEdge, 0)),
         verticesOnEdge=i(verticesOnEdge),
         edgesOnCell=i(edgesOnCell), nEdgesOnCell=i(nEdgesOnCell),

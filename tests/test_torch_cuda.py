@@ -5,7 +5,8 @@ no JAX, so this file imports none and runs without the suite's conftest:
 
     python -m pytest -o addopts="" --noconftest -m cuda tests/test_torch_cuda.py
 
-Shapes are the main path's (40,962 cells, 26 levels). Tolerances: float64
+Shapes are those of both paths (jw_120km: 40,962 cells x 26 levels;
+supercell_2km: 9,216 cells x 40 levels). Tolerances: float64
 1e-12 x max|plain| (summation order only); float32 1e-5 for K1, whose
 Thomas recurrence amplifies differently contracted FMAs, 1e-6 for K2.
 """
@@ -20,7 +21,10 @@ from mpas_tpu_torch.kernels.acoustic import (acoustic_cell_update,
                                              example_args)
 from mpas_tpu_torch.kernels.tinydot import tinydot, tinydot_plain
 
-K2_SHAPES = [(6, 6, 26), (6, 6, 52), (3, 6, 26)]   # (P, I, K) on the path
+PATHS = [(40962, 26), (9216, 40)]                   # (nC, nz) per path
+# (nC, P, I, K) of the TRiSK and second-derivative contractions
+K2_SHAPES = [(nc, P, 6, K) for nc, nz in PATHS
+             for P, K in ((6, nz), (6, 2 * nz), (3, nz))]
 
 
 @pytest.fixture
@@ -37,26 +41,27 @@ def assert_close(got, ref, rel):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nc,nz", PATHS)
 @pytest.mark.parametrize("dtype,rel", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])
-def test_acoustic_kernel_matches_plain(cuda_device, dtype, rel):
+def test_acoustic_kernel_matches_plain(cuda_device, nc, nz, dtype, rel):
     a = {k: torch.from_numpy(v).to(cuda_device, dtype)
-         for k, v in example_args(40962, 26).items()}
+         for k, v in example_args(nc, nz).items()}
     kernels.reset_launch_counts()
-    got = acoustic_cell_update(26, 0.1, 120.0, **a)
+    got = acoustic_cell_update(nz, 0.1, 120.0, **a)
     assert kernels.launch_counts["acoustic_cell_update"] == 1
-    assert_close(got, acoustic_cell_update_plain(26, 0.1, 120.0, **a), rel)
+    assert_close(got, acoustic_cell_update_plain(nz, 0.1, 120.0, **a), rel)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P,I,K", K2_SHAPES)
+@pytest.mark.parametrize("nc,P,I,K", K2_SHAPES)
 @pytest.mark.parametrize("dtype,rel", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-6)])
-def test_tinydot_kernel_matches_plain(cuda_device, P, I, K, dtype, rel):
+def test_tinydot_kernel_matches_plain(cuda_device, nc, P, I, K, dtype, rel):
     rng = np.random.default_rng(2)
-    w = torch.from_numpy(rng.standard_normal((40962, P, I))).to(
+    w = torch.from_numpy(rng.standard_normal((nc, P, I))).to(
         cuda_device, dtype)
-    x = torch.from_numpy(rng.standard_normal((40962, I, K))).to(
+    x = torch.from_numpy(rng.standard_normal((nc, I, K))).to(
         cuda_device, dtype)
     kernels.reset_launch_counts()
     got = tinydot(w, x)

@@ -5,7 +5,6 @@ golden's own tolerances (tests/test_parity_dycore.py), dry mass to
 roundoff, and the package must run without JAX.
 """
 
-import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -79,20 +78,26 @@ def test_float32_step_after_to(mesh):
                for k in ("u", "w", "theta_m", "rho_zz", "scalars"))
 
 
-@pytest.mark.parametrize("what", ["microphysics", "moist", "exchange"])
+@pytest.mark.parametrize("what", ["mp_wsm6", "mp_thompson", "mp_kessler",
+                                  "exchange"])
 def test_srk3_step_refuses_unported_paths(mesh, what):
-    kw = {"config_microp_scheme": "mp_kessler"} \
-        if what == "microphysics" else {}
+    """WSM6, Thompson and the exchange hooks are not ported; Kessler needs
+    (qv, qc, qr) and the JW state carries one scalar, which the reference
+    rejects with ValueError too."""
+    kw = {} if what == "exchange" else {"config_microp_scheme": what}
     grid, cfg, state, carry = _setup(mesh, 2, 1200.0, **kw)
-    xch = None
-    if what == "moist":
-        moist = state.scalars.new_zeros(state.scalars.shape[:2] + (3,))
-        carry = dataclasses.replace(
-            carry, state=dataclasses.replace(state, scalars=moist))
-    if what == "exchange":
-        xch = object()
-    with pytest.raises(NotImplementedError):
+    assert state.scalars.shape[-1] == 1
+    xch = object() if what == "exchange" else None
+    error = ValueError if what == "mp_kessler" else NotImplementedError
+    with pytest.raises(error):
         srk3_step(grid, cfg, carry, cfg.config_dt, xch=xch)
+
+
+def test_srk3_step_rejects_unknown_scheme(mesh):
+    grid, cfg, _, carry = _setup(mesh, 2, 1200.0,
+                                 config_microp_scheme="mp_unknown")
+    with pytest.raises(ValueError):
+        srk3_step(grid, cfg, carry, cfg.config_dt)
 
 
 _NO_JAX = """
@@ -109,6 +114,10 @@ class Block:
 
 sys.meta_path.insert(0, Block())
 import mpas_tpu_torch.cores.atmosphere.time_integration
+import mpas_tpu_torch.cores.atmosphere.init_supercell
+import mpas_tpu_torch.cores.atmosphere.moisture
+import mpas_tpu_torch.cores.atmosphere.physics.driver
+import mpas_tpu_torch.mesh.planar
 import mpas_tpu_torch.convert
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCK]
 sys.exit(1 if bad else 0)
