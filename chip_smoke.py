@@ -3,35 +3,47 @@
 
     python3 chip_smoke.py
 
-    python3 chip_smoke.py --profile DIR   # also a torch.profiler breakdown
+    python3 chip_smoke.py --profile DIR   # also torch.profiler breakdowns
 
 Run from the repository root on a machine with a CUDA card, nvcc and
-PyTorch built for CUDA. Phases, each of which asserts:
+PyTorch built for CUDA. Phases, each of which asserts (each prints its
+seconds):
 
 1. versions, and the card's name and power limit (nvidia-smi);
-2. build of the CUDA kernels from mpas_tpu_torch/csrc;
-3. each kernel against its plain PyTorch version at the shapes of both
-   paths (jw_120km: 40,962 cells x 26 levels; supercell_2km: 9,216 cells
-   x 40 levels), in float64 and float32, with kernel and plain times;
-4. a small float64 JW trajectory (642 cells, 10 levels, 24 steps) on the
-   card against the same run on the CPU, and the worst err/tol ratio
-   against tests/golden/jw_case2.npz (printed only);
-5. a small float64 moist supercell trajectory (144 cells, 16 levels,
-   seeded cloud and rain, 6 steps with Kessler microphysics) on the card
-   against the same run on the CPU;
-6. the dry path: JW baroclinic wave on the 40,962-cell icosahedral mesh
-   with 26 levels in float32 (setup, then timed steps), with finite
-   fields, conserved dry mass and launch counts that prove every step
-   went through both kernels;
-7. the moist path: the supercell on the 9,216-cell doubly periodic 2-km
-   hex mesh with 40 levels, Kessler microphysics and three transported
-   scalars, in float32, from an initial state seeded with cloud and rain
-   (so the timed steps rain), with finite fields, conserved dry mass and
-   total water, and the launch counts of both kernels.
+2. build of the CUDA kernels from mpas_tpu_torch/csrc, one nvcc per source;
+3. each kernel against its plain PyTorch version at the shapes of every
+   path, in float64 and float32, with kernel and plain times: K1 at
+   jw_120km (40,962 cells x 26 levels), supercell_2km (9,216 x 40),
+   jw_var60_15 (23,000 x 26) and jw_120km_nz55 (40,962 x 55); K2 at the
+   TRiSK and second-derivative contractions of the three atmosphere
+   paths (maxEdges 6, and 8 on the variable-resolution mesh) and at the
+   shallow-water TRiSK pair (K = 1 and 2);
+4. small float64 trajectories on the card against the same runs on the
+   CPU: JW (642 cells, 10 levels, 24 steps; worst err/tol against
+   tests/golden/jw_case2.npz printed only), shallow-water TC5 (642
+   cells, 48 steps; against tests/golden/sw_tc5.npz printed only), JW on
+   a 1,200-cell variable-resolution mesh (10 levels, 3 steps, mesh
+   scaling on, a quarter of the Earth's radius), and the moist supercell
+   (144 cells, 16 levels, seeded cloud and rain, 6 steps with Kessler
+   microphysics);
+5. the full-size paths in float32 (setup, then timed steps), each with
+   finite fields, conserved mass and launch counts that prove every step
+   went through its kernels:
+   - jw_120km: JW baroclinic wave on the 40,962-cell icosahedral mesh, 26
+     levels (12 K1 and 15 K2 launches per step);
+   - sw_tc5_120km: shallow-water test case 5 on the same mesh, dt = 45 s,
+     RK4 (8 K2 launches per step, no K1);
+   - supercell_2km: the supercell on the 9,216-cell doubly periodic 2-km
+     hex mesh with 40 levels, Kessler microphysics and three transported
+     scalars, from an initial state seeded with cloud and rain (so the
+     timed steps rain), also conserving total water;
+   - jw_var60_15: JW on the 23,000-cell 60-15 km variable-resolution mesh
+     (maxEdges 8) of a quarter-radius planet, 26 levels, dt = 90 s, with
+     mesh-scaled dissipation (12 K1 and 15 K2 launches per step).
 
 The second-to-last line is a JSON object with each kernel's numbers
-(launches summed over both paths), the last one {"ok": true, "device":
-{...}}. Without CUDA it fails before any result is printed.
+(launches summed over the four paths), the last one {"ok": true,
+"device": {...}}. Without CUDA it fails before any result is printed.
 """
 
 from __future__ import annotations
@@ -49,11 +61,21 @@ import torch
 
 RTOL, ATOL = 1e-9, 1e-11           # tests/test_parity_dycore.py:27-28
 GOLDEN = Path(__file__).resolve().parent / "tests" / "golden" / "jw_case2.npz"
+SW_GOLDEN = GOLDEN.with_name("sw_tc5.npz")
 MAIN_STEPS = 10
 SLICE_RTOL = 1e-9                  # tests/test_torch_supercell.py
 K1_PER_STEP = 12   # 3 dynamics substeps x (1 + 1 + 2) acoustic iterations
 # K2: 3 solve_diagnostics + 9 dyn_tend q + 3 transport stages per scalar
-K2_PER_STEP = {"jw_120km": 3 + 9 + 3 * 1, "supercell_2km": 3 + 9 + 3 * 3}
+K2_PER_STEP = {"jw_120km": 3 + 9 + 3 * 1, "supercell_2km": 3 + 9 + 3 * 3,
+               "jw_var60_15": 3 + 9 + 3 * 1}
+SW_K2_PER_STEP = 4 * 2             # 4 RK stages x (tangential + q pair)
+# (path, nC, nz) of K1, and (path, nC, (P, I, K) ...) of K2
+K1_SHAPES = (("jw_120km", 40962, 26), ("supercell_2km", 9216, 40),
+             ("jw_var60_15", 23000, 26), ("jw_120km_nz55", 40962, 55))
+K2_SHAPES = (("jw_120km", 40962, ((6, 6, 26), (6, 6, 52), (3, 6, 26))),
+             ("supercell_2km", 9216, ((6, 6, 40), (6, 6, 80), (3, 6, 40))),
+             ("jw_var60_15", 23000, ((8, 8, 26), (8, 8, 52), (3, 8, 26))),
+             ("sw_tc5_120km", 40962, ((6, 6, 1), (6, 6, 2))))
 
 
 def require(cond, msg):
@@ -84,8 +106,8 @@ def cuda_time_ms(fn, reps=20):
 
 
 def check_kernels(device):
-    """Phase 3: each kernel against its plain version at both paths' shapes.
-    Returns {(kernel, path, dtype, shape): numbers}."""
+    """Phase 3: each kernel against its plain version at every path's
+    shapes. Returns {(kernel, path, dtype, shape): numbers}."""
     from mpas_tpu_torch.kernels.acoustic import (acoustic_cell_update,
                                                  acoustic_cell_update_plain,
                                                  example_args)
@@ -96,8 +118,7 @@ def check_kernels(device):
                "tinydot": {torch.float64: 1e-12, torch.float32: 1e-6}}
     results = {}
     rng = np.random.default_rng(0)
-    for path, nc, nz in (("jw_120km", 40962, 26),
-                         ("supercell_2km", 9216, 40)):
+    for path, nc, nz in K1_SHAPES:
         for dtype in (torch.float64, torch.float32):
             args = {k: torch.from_numpy(v).to(device, dtype)
                     for k, v in example_args(nc, nz).items()}
@@ -119,12 +140,15 @@ def check_kernels(device):
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 shape=f"nC={nc} nz={nz} {str(dtype).split('.')[-1]}")
 
-        # the path's contractions (ops/stencils.py and advection.py):
-        # TRiSK at K=nz and K=2*nz, the second derivatives at K=nz
-        for P, I, K in ((6, 6, nz), (6, 6, 2 * nz), (3, 6, nz)):
+    # the paths' contractions (ops/stencils.py and advection.py): TRiSK
+    # at K = nz and 2*nz (1 and 2 on the shallow-water path), the second
+    # derivatives at K = nz; padded slots carry zero weight
+    for path, nc, shapes in K2_SHAPES:
+        for P, I, K in shapes:
             for dtype in (torch.float64, torch.float32):
-                w = torch.from_numpy(rng.standard_normal((nc, P, I))).to(
-                    device, dtype)
+                w = np.where(rng.uniform(size=(nc, 1, I)) < 0.3, 0.0,
+                             rng.standard_normal((nc, P, I)))
+                w = torch.from_numpy(w).to(device, dtype)
                 x = torch.from_numpy(rng.standard_normal((nc, I, K))).to(
                     device, dtype)
                 got, ref = tinydot(w, x), tinydot_plain(w, x)
@@ -137,8 +161,8 @@ def check_kernels(device):
                 if dtype == torch.float32:
                     ms = cuda_time_ms(lambda: tinydot(w, x))
                     plain_ms = cuda_time_ms(lambda: tinydot_plain(w, x))
-                    print(f"K2 f32 time {path} at P={P} K={K}: kernel "
-                          f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+                    print(f"K2 f32 time {path} at (P,I,K)=({P},{I},{K}): "
+                          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
                     results[("tinydot", path, dtype, (P, I, K))] = dict(
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         shape=f"nC={nc} P={P} I={I} K={K} float32")
@@ -147,7 +171,7 @@ def check_kernels(device):
 
 def kernel_json_numbers(results):
     """The JSON line's numbers per kernel: the times at the jw_120km f32
-    shape of most of its calls, the worst f32 error over both paths."""
+    shape of most of its calls, the worst f32 error over all shapes."""
     out = {}
     for name, key in (("acoustic_cell_update", (40962, 26)),
                       ("tinydot", (6, 6, 52))):
@@ -159,47 +183,135 @@ def kernel_json_numbers(results):
     return out
 
 
-def jw_setup(n, lloyd_iters, nz, dt, len_disp):
+def jw_setup(mesh, nz, dt, len_disp, radius_scale=1.0, **cfg_kw):
+    """JW case 2 on a unit-sphere mesh scaled to radius_scale x the
+    Earth's radius; cfg_kw goes to AtmConfig."""
+    from mpas_tpu_torch.constants import a
     from mpas_tpu_torch.cores.atmosphere.config import AtmConfig
     from mpas_tpu_torch.cores.atmosphere.init_jw import init_jw
-    from mpas_tpu_torch.mesh.sphere import icosahedral_mesh
     cfg = AtmConfig(config_nvertlevels=nz, config_len_disp=len_disp,
-                    config_dt=dt, config_number_of_sub_steps=2)
-    mesh = icosahedral_mesh(n, lloyd_iters=lloyd_iters)
-    return (cfg, *init_jw(mesh, cfg, case=2))
+                    config_dt=dt, config_number_of_sub_steps=2, **cfg_kw)
+    return (cfg, *init_jw(mesh, cfg, case=2, radius=a * radius_scale))
 
 
-def check_small_trajectory(device):
-    """Phase 4: 24 f64 steps on the card vs the CPU (kernels vs plain)."""
+def jw_var_setup(n_points, iterations, nz, dt, len_disp):
+    """JW case 2 on the 4:1 refined variable-resolution mesh of a
+    quarter-radius planet with mesh-scaled dissipation (bench.py:67-77)."""
+    from mpas_tpu_torch.mesh.varres import variable_res_mesh
+    mesh = variable_res_mesh(n_points, iterations=iterations)
+    return jw_setup(mesh, nz, dt, len_disp, radius_scale=0.25,
+                    config_h_ScaleWithMesh=True)
+
+
+def with_passive_scalar(grid, state):
+    """A smooth passive scalar in place of JW's zero one, so that the
+    transport of a small trajectory moves something."""
+    lat = grid.mesh.latCell[:, None, None]
+    lon = grid.mesh.lonCell[:, None, None]
+    return dataclasses.replace(state, scalars=(
+        1.0 + torch.sin(2.0 * lon) * torch.cos(lat))
+        * torch.ones_like(state.scalars))
+
+
+STATE_FIELDS = ("u", "w", "theta_m", "rho_zz", "scalars")
+
+
+def atm_runs(label, device, cfg, grid, state, diag, steps):
+    """The same float64 atmosphere run on the CPU (plain versions) and on
+    the card (kernels); returns {"cpu": carry, "cuda": carry}."""
     from mpas_tpu_torch.cores.atmosphere.time_integration import (
         init_carry, run_steps)
-    cfg, grid, state, diag = jw_setup(8, 2, 10, 1200.0, 960000.0)
     outs = {}
-    for dev in (torch.device("cpu"), device):
+    for where, dev in (("cpu", torch.device("cpu")), ("cuda", device)):
         g = grid.to(dev, torch.float64)
         carry = init_carry(g, cfg, state.to(dev, torch.float64),
                            diag.to(dev, torch.float64), cfg.config_dt)
         t0 = time.perf_counter()
-        out = run_steps(g, cfg, carry, cfg.config_dt, 24)
+        outs[where] = run_steps(g, cfg, carry, cfg.config_dt, steps)
         if dev.type == "cuda":
             torch.cuda.synchronize()
-        print(f"small f64 trajectory on {dev.type}: 24 steps in "
+        print(f"small f64 {label} on {where}: {steps} steps in "
               f"{time.perf_counter() - t0:.2f} s")
-        outs[dev.type] = {k: getattr(out.state, k).cpu().numpy()
-                          for k in ("u", "w", "theta_m", "rho_zz",
-                                    "scalars")}
-    for k, ref in outs["cpu"].items():
-        err = np.abs(outs["cuda"][k] - ref)
+    return outs
+
+
+def compare_err_tol(label, fields, golden):
+    """Hold the card's fields to the CPU's at RTOL/ATOL (asserted), then
+    print their distance to a golden file (not asserted)."""
+    for k, ref in fields["cpu"].items():
+        err = np.abs(fields["cuda"][k] - ref)
         worst = float((err / (ATOL + RTOL * np.abs(ref))).max())
         print(f"  {k}: cuda vs cpu worst err/tol {worst:.3e}")
-        require(np.isfinite(outs["cuda"][k]).all(), k)
-        require(worst <= 1.0, f"{k}: CUDA f64 run departs from the CPU run")
-    golden = np.load(GOLDEN)
-    for k in golden.files:
-        err = np.abs(outs["cuda"][k] - golden[k])
-        worst = float((err / (ATOL + RTOL * np.abs(golden[k]))).max())
-        print(f"  {k}: cuda vs {GOLDEN.name} worst err/tol {worst:.3e} "
+        require(np.isfinite(fields["cuda"][k]).all(), k)
+        require(worst <= 1.0, f"{k}: CUDA f64 {label} run departs from the "
+                "CPU run")
+    ref = np.load(golden)
+    for k in ref.files:
+        err = np.abs(fields["cuda"][k] - ref[k])
+        worst = float((err / (ATOL + RTOL * np.abs(ref[k]))).max())
+        print(f"  {k}: cuda vs {golden.name} worst err/tol {worst:.3e} "
               "(not asserted)")
+
+
+def compare_scaled(label, fields):
+    """Hold the card's fields to the CPU's at SLICE_RTOL x max|cpu|."""
+    for k, ref in fields["cpu"].items():
+        scale = float(np.abs(ref).max())
+        err = float(np.abs(fields["cuda"][k] - ref).max())
+        print(f"  {k}: cuda vs cpu max abs err {err:.3e} (max|cpu| "
+              f"{scale:.3e}, bound {SLICE_RTOL:g} x max|cpu|)")
+        require(np.isfinite(fields["cuda"][k]).all(), k)
+        require(err <= SLICE_RTOL * scale,
+                f"{k}: CUDA f64 {label} run departs from the CPU run")
+
+
+def state_fields(carry):
+    return {k: getattr(carry.state, k).cpu().numpy() for k in STATE_FIELDS}
+
+
+def check_small_trajectory(device, mesh8):
+    """Phase 4: 24 f64 JW steps on the card vs the CPU (kernels vs plain)."""
+    outs = atm_runs("JW", device, *jw_setup(mesh8, 10, 1200.0, 960000.0), 24)
+    compare_err_tol("JW", {w: state_fields(c) for w, c in outs.items()},
+                    GOLDEN)
+
+
+def check_small_sw(device, mesh8):
+    """Phase 4: 48 f64 shallow-water TC5 steps (dt = 900 s) on the card vs
+    the CPU, the setup of tests/test_parity_dycore.py:_sw_trajectory."""
+    from mpas_tpu_torch.cores.sw import test_cases
+    from mpas_tpu_torch.cores.sw.config import SWConfig
+    from mpas_tpu_torch.cores.sw.time_integration import run_steps
+    mesh, state, h_s = test_cases.test_case_5(mesh8)
+    cfg = SWConfig(config_dt=900.0, config_test_case=5)
+    fields = {}
+    for where, dev in (("cpu", torch.device("cpu")), ("cuda", device)):
+        f64 = torch.float64
+        t0 = time.perf_counter()
+        out = run_steps(mesh.to(dev, f64), cfg, state.to(dev, f64),
+                        h_s.to(dev, f64), 48)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        print(f"small f64 sw_tc5 on {where}: 48 steps in "
+              f"{time.perf_counter() - t0:.2f} s")
+        fields[where] = {k: getattr(out, k).cpu().numpy()
+                         for k in ("u", "h", "tracers")}
+    compare_err_tol("SW", fields, SW_GOLDEN)
+
+
+def check_small_varres(device):
+    """Phase 4: 3 f64 JW steps on a 1,200-cell variable-resolution mesh
+    (maxEdges 8, mesh scaling on, quarter radius) on the card vs the
+    CPU, as tests/test_torch_varres.py runs them against the reference."""
+    from mpas_tpu_torch.mesh.varres import variable_res_mesh
+    mesh = variable_res_mesh(1200, iterations=20, seed=0)
+    require(mesh.maxEdges == 8, f"varres maxEdges {mesh.maxEdges}")
+    cfg, grid, state, diag = jw_setup(mesh, 10, 300.0, 60000.0,
+                                      radius_scale=0.25,
+                                      config_h_ScaleWithMesh=True)
+    outs = atm_runs("varres JW", device, cfg, grid,
+                    with_passive_scalar(grid, state), diag, 3)
+    compare_scaled("varres", {w: state_fields(c) for w, c in outs.items()})
 
 
 def supercell_setup(n, nz):
@@ -222,44 +334,24 @@ def supercell_setup(n, nz):
 
 
 def check_small_supercell(device):
-    """Phase 5: 6 f64 moist steps on the card vs the CPU."""
-    from mpas_tpu_torch.cores.atmosphere.time_integration import (
-        init_carry, run_steps)
-    cfg, grid, state, diag = supercell_setup(12, 16)
-    outs = {}
-    for dev in (torch.device("cpu"), device):
-        g = grid.to(dev, torch.float64)
-        carry = init_carry(g, cfg, state.to(dev, torch.float64),
-                           diag.to(dev, torch.float64), cfg.config_dt)
-        t0 = time.perf_counter()
-        out = run_steps(g, cfg, carry, cfg.config_dt, 6)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        print(f"small f64 supercell on {dev.type}: 6 steps in "
-              f"{time.perf_counter() - t0:.2f} s")
-        outs[dev.type] = {k: getattr(out.state, k).cpu().numpy()
-                          for k in ("u", "w", "theta_m", "rho_zz",
-                                    "scalars")}
-        outs[dev.type].update(rainnc=out.rainnc.cpu().numpy(),
-                              rt_diabatic_tend=out.rt_diabatic_tend.cpu()
-                              .numpy())
-    require(float(outs["cpu"]["rainnc"].max()) > 0.0, "no rain reached "
+    """Phase 4: 6 f64 moist steps on the card vs the CPU."""
+    outs = atm_runs("supercell", device, *supercell_setup(12, 16), 6)
+    fields = {}
+    for where, carry in outs.items():
+        fields[where] = state_fields(carry)
+        fields[where].update(rainnc=carry.rainnc.cpu().numpy(),
+                             rt_diabatic_tend=carry.rt_diabatic_tend.cpu()
+                             .numpy())
+    require(float(fields["cpu"]["rainnc"].max()) > 0.0, "no rain reached "
             "the ground in the small supercell run")
-    for k, ref in outs["cpu"].items():
-        scale = float(np.abs(ref).max())
-        err = float(np.abs(outs["cuda"][k] - ref).max())
-        print(f"  {k}: cuda vs cpu max abs err {err:.3e} (max|cpu| "
-              f"{scale:.3e}, bound {SLICE_RTOL:g} x max|cpu|)")
-        require(np.isfinite(outs["cuda"][k]).all(), k)
-        require(err <= SLICE_RTOL * scale,
-                f"{k}: CUDA f64 supercell run departs from the CPU run")
+    compare_scaled("supercell", fields)
 
 
 def run_path(name, device, card, setup):
-    """Phases 6 and 7: one path at full size in float32 through the port's
-    entry points: host setup, copy to the card, init_carry, one warm step,
-    MAIN_STEPS timed steps; the launch counters are zeroed just before
-    init_carry and read just after the last step."""
+    """Phase 5, an atmosphere path at full size in float32 through the
+    port's entry points: host setup, copy to the card, init_carry, one
+    warm step, MAIN_STEPS timed steps; the launch counters are zeroed just
+    before init_carry and read just after the last step."""
     from mpas_tpu_torch import kernels
     from mpas_tpu_torch.cores.atmosphere.moisture import masses
     from mpas_tpu_torch.cores.atmosphere.physics import kessler
@@ -275,9 +367,9 @@ def run_path(name, device, card, setup):
     torch.cuda.synchronize()
     copy_s = time.perf_counter() - t0
     nc, nz = grid.mesh.nCells, grid.vert.nz
-    print(f"{name} setup: {nc} cells x {nz} levels, {state.scalars.shape[-1]}"
-          f" scalar(s); host build {host_s:.2f} s, copy to card "
-          f"{copy_s:.2f} s")
+    print(f"{name} setup: {nc} cells x {nz} levels, maxEdges "
+          f"{grid.mesh.maxEdges}, {state.scalars.shape[-1]} scalar(s); host "
+          f"build {host_s:.2f} s, copy to card {copy_s:.2f} s")
 
     dt = cfg.config_dt
     kernels.reset_launch_counts()
@@ -307,7 +399,7 @@ def run_path(name, device, card, setup):
                             ("tinydot", k2)):
         require(counts[kname] - before[kname] == per_step * MAIN_STEPS,
                 counts)
-    for k in ("u", "w", "theta_m", "rho_zz", "scalars"):
+    for k in STATE_FIELDS:
         require(bool(torch.isfinite(getattr(carry.state, k)).all()), k)
     mass1 = masses(grid, carry)
     drift = [abs(b - a) / a if a else 0.0 for a, b in zip(mass0, mass1)]
@@ -323,7 +415,7 @@ def run_path(name, device, card, setup):
 
 
 def run_supercell_path(device, card):
-    """Phase 7: supercell_2km (bench.py:104-119) in float32, from the
+    """Phase 5, supercell_2km (bench.py:104-119) in float32, from the
     seeded moist start: the timed steps carry cloud and rain."""
     cfg, grid, carry, counts, drift, sed = run_path(
         "supercell_2km", device, card, lambda: supercell_setup(96, 40))
@@ -345,6 +437,100 @@ def run_supercell_path(device, card):
     return cfg, grid, carry, counts
 
 
+def run_sw_path(device, card, mesh):
+    """Phase 5, sw_tc5_120km (bench.py:160-181): shallow-water test case 5
+    on the 40,962-cell mesh, dt = 45 s, RK4 with the fused stage and two
+    tracers, in float32: host setup, copy to the card, one warm step,
+    MAIN_STEPS timed steps; the launch counters are zeroed just before the
+    warm step and read just after the last step."""
+    from mpas_tpu_torch import kernels
+    from mpas_tpu_torch.cores.sw import test_cases
+    from mpas_tpu_torch.cores.sw.config import SWConfig
+    from mpas_tpu_torch.cores.sw.global_diagnostics import global_diagnostics
+    from mpas_tpu_torch.cores.sw.time_integration import rk4_step
+    name = "sw_tc5_120km"
+    t0 = time.perf_counter()
+    mesh, state, h_s = test_cases.test_case_5(mesh)
+    cfg = SWConfig(config_dt=45.0, config_test_case=5)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f32 = torch.float32
+    mesh, state, h_s = (mesh.to(device, f32), state.to(device, f32),
+                        h_s.to(device, f32))
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    nc, dt = mesh.nCells, cfg.config_dt
+    print(f"{name} setup: {nc} cells, {state.tracers.shape[-1]} tracers; "
+          f"host build {host_s:.2f} s, copy to card {copy_s:.2f} s")
+    require(nc == 40962, f"{name} built the wrong size")
+
+    diag0 = global_diagnostics(mesh, state, h_s, dt)
+    area = mesh.areaCell.double()[:, None]
+    tracer0 = (state.tracers.double() * state.h.double()[:, None]
+               * area).sum(0)
+    kernels.reset_launch_counts()
+    state = rk4_step(mesh, cfg, state, h_s, dt)               # warm step
+    torch.cuda.synchronize()
+    before = dict(kernels.launch_counts)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    for _ in range(MAIN_STEPS):
+        state = rk4_step(mesh, cfg, state, h_s, dt)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = dict(kernels.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+
+    steps = MAIN_STEPS + 1
+    require(counts["acoustic_cell_update"] == 0, counts)
+    require(counts["tinydot"] == SW_K2_PER_STEP * steps, counts)
+    require(counts["tinydot"] - before["tinydot"]
+            == SW_K2_PER_STEP * MAIN_STEPS, counts)
+    for k in ("u", "h", "tracers"):
+        require(bool(torch.isfinite(getattr(state, k)).all()), k)
+    require(bool((state.h > 0.0).all()), "non-positive thickness")
+    diag1 = global_diagnostics(mesh, state, h_s, dt)
+    drift = abs(diag1["total_mass"] - diag0["total_mass"]) \
+        / diag0["total_mass"]
+    tracer1 = (state.tracers.double() * state.h.double()[:, None]
+               * area).sum(0)
+    tracer_drift = float(((tracer1 - tracer0).abs() / tracer0.abs()).max())
+    energy = (diag1["total_energy"] - diag0["total_energy"]) \
+        / diag0["total_energy"]
+    ms = 1e3 * elapsed / MAIN_STEPS
+    print(f"{name} float32 on {card}: {MAIN_STEPS} steps in {elapsed:.3f} s "
+          f"= {ms:.2f} ms/step, {nc * MAIN_STEPS / elapsed:.1f} cell-column "
+          f"updates/s; peak device memory {peak_gb:.2f} GB; mass (h x area) "
+          f"drift {drift:.3e}, tracer-mass drift {tracer_drift:.3e}, energy "
+          f"change {energy:.3e}, max CFL {diag1['max_cfl']:.4f}; launches "
+          f"{counts} (per step: K1 0, K2 {SW_K2_PER_STEP})")
+    require(drift <= 1e-5, f"h x area not conserved: {drift:.3e}")
+    require(tracer_drift <= 1e-5, f"tracer mass not conserved: "
+            f"{tracer_drift:.3e}")
+    return cfg, mesh, state, h_s, counts
+
+
+def run_var_path(device, card):
+    """Phase 5, jw_var60_15 (bench.py:67-77): JW case 2 on
+    variable_res_mesh(23000, iterations=30), 26 levels, dt = 90 s,
+    config_len_disp = 15 km, a quarter of the Earth's radius, mesh-scaled
+    dissipation, in float32."""
+    cfg, grid, carry, counts, _, _ = run_path(
+        "jw_var60_15", device, card,
+        lambda: jw_var_setup(23000, 30, 26, 90.0, 15000.0))
+    mesh = grid.mesh
+    require((mesh.nCells, grid.vert.nz, mesh.maxEdges) == (23000, 26, 8),
+            "jw_var60_15 built the wrong size")
+    scale = mesh.meshScalingDel2
+    print(f"jw_var60_15 mesh: {mesh.nEdges} edges, {mesh.nVertices} "
+          f"vertices, vertexDegree {mesh.vertexDegree}, meshScalingDel2 "
+          f"{float(scale.min()):.4f}-{float(scale.max()):.4f}, dcEdge "
+          f"{float(mesh.dcEdge.min()) / 1e3:.2f}-"
+          f"{float(mesh.dcEdge.max()) / 1e3:.2f} km")
+    require(float(scale.max()) > 3.9, "mesh scaling not applied")
+    return cfg, grid, carry, counts
+
+
 PROFILE_REGIONS = ("compute_dyn_tend", "acoustic_step", "solve_diagnostics",
                    "recover_large_step_variables", "vert_imp_coefs",
                    "set_smlstep_pert_variables", "advance_scalars",
@@ -353,46 +539,45 @@ PROFILE_REGIONS = ("compute_dyn_tend", "acoustic_step", "solve_diagnostics",
                    "reconstruct_cell_winds", "compute_moist_coefficients")
 
 
-def profile_supercell(cfg, grid, carry, out_dir, steps=3):
-    """--profile DIR: torch.profiler over `steps` supercell steps, with a
-    record_function span around each dycore call of srk3_step. Prints the
-    device time per region and writes the per-kernel table to
-    DIR/profile_supercell.txt."""
+def profile_steps(name, step, out_dir, module=None, regions=(), steps=3):
+    """--profile DIR: torch.profiler over `steps` calls of step(), with a
+    record_function span around each function of `module` named in
+    `regions` (patched in for the run and restored after). Prints device
+    time and kernel count per step, K1 and K2, and per region, and writes
+    the per-kernel table to DIR/profile_<name>.txt."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from mpas_tpu_torch.cores.atmosphere import time_integration as ti
-
-    def spanned(name, fn):
+    def spanned(region, fn):
         def call(*args, **kwargs):
-            with record_function(name):
+            with record_function(region):
                 return fn(*args, **kwargs)
         return call
 
-    saved = {n: getattr(ti, n) for n in PROFILE_REGIONS}
+    saved = {n: getattr(module, n) for n in regions}
     try:
         for n, fn in saved.items():
-            setattr(ti, n, spanned(n, fn))
+            setattr(module, n, spanned(n, fn))
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
-                carry = ti.srk3_step(grid, cfg, carry, cfg.config_dt)
+                step()
             torch.cuda.synchronize()
     finally:
         for n, fn in saved.items():
-            setattr(ti, n, fn)
+            setattr(module, n, fn)
 
     # CUDA-side events named after a region are the record_function spans
     # on the device timeline (first to last kernel, gaps included); the
     # rest are kernels
     events = prof.key_averages()
     kern = [e for e in events if e.device_type == DeviceType.CUDA
-            and e.key not in PROFILE_REGIONS]
+            and e.key not in regions]
     span = {e.key: e.device_time_total for e in events
-            if e.device_type == DeviceType.CUDA and e.key in PROFILE_REGIONS}
+            if e.device_type == DeviceType.CUDA and e.key in regions}
     dev_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
     n_kern = sum(e.count for e in kern) / steps
-    print(f"profile ({steps} supercell steps): device busy {dev_ms:.3f} "
+    print(f"profile {name} ({steps} steps): device busy {dev_ms:.3f} "
           f"ms/step over {n_kern:.0f} kernels/step")
     for label, prefix in (("K1", "void acoustic_cell_kernel"),
                           ("K2", "void tinydot_kernel")):
@@ -401,7 +586,7 @@ def profile_supercell(cfg, grid, carry, out_dir, steps=3):
               f"{sum(e.count for e in ks) / steps:.0f} launches/step, "
               f"{sum(e.self_device_time_total for e in ks) / 1e3 / steps:.3f}"
               " ms/step")
-    for e in sorted((e for e in events if e.key in PROFILE_REGIONS
+    for e in sorted((e for e in events if e.key in regions
                      and e.device_type == DeviceType.CPU),
                     key=lambda e: -e.device_time_total):
         print(f"  region {e.key}: {e.count / steps:.0f} calls/step, "
@@ -411,17 +596,36 @@ def profile_supercell(cfg, grid, carry, out_dir, steps=3):
     table = events.table(sort_by="self_device_time_total", row_limit=60)
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
-    (out / "profile_supercell.txt").write_text(table)
+    (out / f"profile_{name}.txt").write_text(table)
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  kernel {e.key[:70]}: {e.count / steps:.0f}/step, "
               f"{e.self_device_time_total / 1e3 / steps:.3f} ms/step")
 
 
+def profile_srk3(name, cfg, grid, carry, out_dir):
+    """--profile of an atmosphere path, spans around the dycore calls."""
+    from mpas_tpu_torch.cores.atmosphere import time_integration as ti
+    box = [carry]
+
+    def step():
+        box[0] = ti.srk3_step(grid, cfg, box[0], cfg.config_dt)
+    profile_steps(name, step, out_dir, ti, PROFILE_REGIONS)
+
+
+def timed(label, fn, *args):
+    """Run one phase and print its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {label}: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
-                        help="also profile 3 supercell steps; the kernel "
-                             "table goes to DIR/profile_supercell.txt")
+                        help="also profile 3 steps of sw_tc5_120km, "
+                             "supercell_2km and jw_var60_15; the kernel "
+                             "tables go to DIR/profile_<path>.txt")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -436,23 +640,50 @@ def main():
           f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     print(f"nvidia-smi: {card}")
 
-    t0 = time.perf_counter()
-    klib = load_library()
-    print(f"kernels built in {time.perf_counter() - t0:.2f} s "
+    klib = timed("kernel build", load_library)
+    print(f"kernels built in {klib.build_seconds:.2f} s "
           f"({klib.path.name}); nvcc/ptxas:\n{klib.log.strip()}")
 
-    kernel_results = check_kernels(device)
-    check_small_trajectory(device)
-    check_small_supercell(device)
-    _, grid, _, jw_counts = run_path(
-        "jw_120km", device, card,
-        lambda: jw_setup(64, 4, 26, 720.0, 120000.0))[:4]
+    from mpas_tpu_torch.mesh.sphere import icosahedral_mesh
+    kernel_results = timed("kernel parity", check_kernels, device)
+    mesh8 = icosahedral_mesh(8, lloyd_iters=2)
+    timed("small f64 JW", check_small_trajectory, device, mesh8)
+    timed("small f64 sw_tc5", check_small_sw, device, mesh8)
+    timed("small f64 varres JW", check_small_varres, device)
+    timed("small f64 supercell", check_small_supercell, device)
+
+    # one 40,962-cell mesh for jw_120km and sw_tc5_120km: each init
+    # scales its own copy
+    mesh64 = timed("icosahedral_mesh(64, 4)", icosahedral_mesh, 64, 4)
+    counts = {}
+    _, grid, _, counts["jw_120km"] = timed(
+        "jw_120km", run_path, "jw_120km", device, card,
+        lambda: jw_setup(mesh64, 26, 720.0, 120000.0))[:4]
     require((grid.mesh.nCells, grid.vert.nz) == (40962, 26),
             "jw_120km built the wrong size")
     del grid
-    cfg, grid, carry, sc_counts = run_supercell_path(device, card)
+    sw = timed("sw_tc5_120km", run_sw_path, device, card, mesh64)
+    counts["sw_tc5_120km"] = sw[-1]
     if args.profile:
-        profile_supercell(cfg, grid, carry, args.profile)
+        cfg, mesh, state, h_s, _ = sw
+        from mpas_tpu_torch.cores.sw import time_integration as sw_ti
+        box = [state]
+
+        def sw_step():
+            box[0] = sw_ti.rk4_step(mesh, cfg, box[0], h_s, cfg.config_dt)
+        profile_steps("sw_tc5_120km", sw_step, args.profile, sw_ti,
+                      ("stage_tendencies",))
+    del sw, mesh64
+    cfg, grid, carry, counts["supercell_2km"] = timed(
+        "supercell_2km", run_supercell_path, device, card)
+    if args.profile:
+        profile_srk3("supercell_2km", cfg, grid, carry, args.profile)
+    del grid, carry
+    cfg, grid, carry, counts["jw_var60_15"] = timed(
+        "jw_var60_15", run_var_path, device, card)
+    if args.profile:
+        profile_srk3("jw_var60_15", cfg, grid, carry, args.profile)
+    del grid, carry
 
     numbers = kernel_json_numbers(kernel_results)
     sources = {"acoustic_cell_update": ("mpas_tpu_torch/csrc/acoustic.cu",
@@ -462,7 +693,8 @@ def main():
     print(f"card: {card}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": jw_counts[name] + sc_counts[name], **numbers[name]}
+         "launches": sum(c[name] for c in counts.values()),
+         **numbers[name]}
         for name, (src, rep) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,11 @@
 """Carry a state across from the reference package.
 
 The input is the reference's `AtmGrid`/`AtmState`/`AtmDiag`/`AtmCarry`
-flattened to nested dicts of numpy arrays plus their static ints and
-floats (nCells, nz, cf1..3, adv_beta, sphere_radius, ...): the same field
-names, no JAX types. Fields the port does not carry (the indexed
-advection stencil) are ignored. Arrays become CPU tensors of the same
-float dtype; index arrays become int64.
+or `SWState` flattened to nested dicts of numpy arrays plus their static
+ints and floats (nCells, nz, cf1..3, adv_beta, sphere_radius, ...): the
+same field names, no JAX types. Fields the port does not carry (the
+indexed advection stencil) are ignored. Arrays become CPU tensors of the
+same float dtype; index arrays become int64.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 from mpas_tpu_torch.cores.atmosphere.setup import AtmGrid, VerticalGrid
 from mpas_tpu_torch.cores.atmosphere.state import AtmDiag, AtmState
 from mpas_tpu_torch.cores.atmosphere.time_integration import AtmCarry
+from mpas_tpu_torch.cores.sw.state import SWState
 from mpas_tpu_torch.mesh.mesh import Mesh
 
 
@@ -59,6 +60,10 @@ def diag_from_arrays(d) -> AtmDiag:
 def carry_from_arrays(d) -> AtmCarry:
     return _build(AtmCarry, d, state=state_from_arrays(d["state"]),
                   diag=diag_from_arrays(d["diag"]))
+
+
+def sw_state_from_arrays(d) -> SWState:
+    return _build(SWState, d)
 
 
 def to_arrays(obj):

@@ -31,6 +31,7 @@ from mpas_tpu_torch.cores.atmosphere.setup import (AtmGrid,
                                                    build_vertical_grid,
                                                    build_zb)
 from mpas_tpu_torch.cores.atmosphere.state import AtmDiag, AtmState
+from mpas_tpu_torch.mesh.build import compute_mesh_scaling
 from mpas_tpu_torch.mesh.mesh import Mesh
 
 # JW constants (ref: mpas_init_atm_cases.F:372-386)
@@ -69,11 +70,11 @@ def init_jw(mesh: Mesh, cfg: AtmConfig, case: int = 2,
             n_scalars: int = 1, u0: float = U0, radius: float = EARTH_RADIUS):
     """Build (AtmGrid, AtmState, AtmDiag) for JW cases 1/2/3 on a
     unit-sphere mesh, scaled to `radius` here like the reference init.
-    u0=0 gives a resting atmosphere over flat terrain."""
+    u0=0 gives a resting atmosphere over flat terrain; radius < Earth's
+    gives the reduced-radius ("small planet") configuration. With
+    config_h_ScaleWithMesh the dissipation scales with meshDensity."""
     if cfg.config_h_ScaleWithMesh:
-        raise NotImplementedError(
-            "config_h_ScaleWithMesh (variable-resolution mesh scaling) is "
-            "not ported")
+        mesh = compute_mesh_scaling(mesh, True)
     mesh = mesh.scaled(radius)
     nz = cfg.config_nvertlevels
     nC, nE = mesh.nCells, mesh.nEdges

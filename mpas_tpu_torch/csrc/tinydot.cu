@@ -4,9 +4,11 @@
 //
 // Replaces the Pallas TPU kernel mpas_tpu/kernels/tinydot.py
 // (tinydot / _tinydot_kernel). On the dycore's path it carries the
-// cell-assembled TRiSK operator (P = I = maxEdges = 6, K = nz or 2*nz) and
-// the quadratic-fit second derivatives of the advection (P = 3, I = 6,
-// K = nz).
+// cell-assembled TRiSK operator (P = I = maxEdges: 6 on the icosahedral
+// meshes, 8 on the variable-resolution one; K = nz or 2*nz) and the
+// quadratic-fit second derivatives of the advection (P = 3, I = maxEdges,
+// K = nz); on the shallow-water path the same TRiSK operator at K = 1 (the
+// tangential velocity) and K = 2 (the q pair).
 //
 // What bounds it: memory. Each output costs I multiply-adds against I
 // loads of x, so at these widths the kernel moves bytes, not flops.
@@ -15,10 +17,12 @@
 // looping over p and i. Consecutive threads take consecutive k, so the
 // loads of x[c, i, :] and the stores of out[c, p, :] are coalesced along k,
 // and w[c, p, i] is the same address across the threads of one cell (a
-// broadcast). The accumulation runs over i left to right, as the TPU
-// kernel's unrolled loop does. The gather that builds x (edgesOnCell or
-// cellsOnCell rows) stays outside; fusing it in, so x never exists in
-// device memory, is later work.
+// broadcast). At K = 1 and 2 neither holds: neighbouring threads are
+// neighbouring cells, whose w rows lie P*I values apart, so each thread
+// reads its own P*I weights. The accumulation runs over i left to right,
+// as the TPU kernel's unrolled loop does. The gather that builds x
+// (edgesOnCell or cellsOnCell rows) stays outside; fusing it in, so x
+// never exists in device memory, is later work.
 
 #include <cuda_runtime.h>
 

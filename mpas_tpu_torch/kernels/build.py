@@ -1,8 +1,13 @@
 """Build the CUDA sources in mpas_tpu_torch/csrc into one shared library
 with a plain C interface, and load it with ctypes.
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o build/mpas_tpu_torch/<lib>.so csrc/*.cu
+Each source compiles in its own nvcc process, all started together, and
+one more nvcc links the objects:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <obj>.o csrc/<src>.cu   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o build/mpas_tpu_torch/<lib>.so <obj>.o ...
 
 The library name carries a hash of the sources and flags, so an edit
 rebuilds and an unchanged tree reuses the last build. It is built at first
@@ -24,8 +29,10 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mpas_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v"]
+LINK_FLAGS = [*ARCH_FLAGS, "-shared"]
 
 _P = ctypes.c_void_p
 _PP = ctypes.POINTER(ctypes.c_void_p)
@@ -61,21 +68,38 @@ def _nvcc() -> str:
 def load_library() -> KernelLibrary:
     """Build (if needed) and load the kernel library; cached per process."""
     sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in sources:
         digest.update(src.read_bytes())
     path = BUILD_DIR / f"libmpas_kernels-{digest.hexdigest()[:16]}.so"
     build_seconds, log = 0.0, ""
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        nvcc, pid = _nvcc(), os.getpid()
+        objs = [path.with_name(f"{path.stem}.{src.stem}.{pid}.o")
+                for src in sources]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objs)]
+        outs = [proc.communicate()[0] for proc in procs]
+        log = "".join(f"[{src.name}]\n{out}"
+                      for src, out in zip(sources, outs))
+        failed = [src.name for src, proc in zip(sources, procs)
+                  if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        tmp = path.with_suffix(f".{pid}.tmp")
+        proc = subprocess.run(
+            [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True)
         build_seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
+        log += proc.stdout + proc.stderr
+        for obj in objs:
+            obj.unlink()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
         os.replace(tmp, path)
         path.with_suffix(".log").write_text(log)
     lib = ctypes.CDLL(str(path))

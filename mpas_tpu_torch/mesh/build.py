@@ -17,6 +17,8 @@ the weight of the j-th edge e' is
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -407,3 +409,24 @@ def build_mesh(cell_xyz, vertex_xyz, vertices_on_cell, *, on_sphere=True,
         fCell=r(np.zeros(nCells)),
         meshScalingDel2=r(np.ones(nEdges)), meshScalingDel4=r(np.ones(nEdges)),
     )
+
+
+def compute_mesh_scaling(mesh: Mesh, scale_with_mesh: bool = True) -> Mesh:
+    """del2/del4 dissipation scaling from meshDensity.
+
+    ref: atm_compute_mesh_scaling (mpas_atm_core.F:927-967) and sw
+    compute_mesh_scaling (mpas_sw_core.F:347):
+      del2 scale = ((rho(c1)+rho(c2))/2)^-0.25, del4 scale = ^-0.75,
+    with meshDensity normalized so the finest region has rho = 1 (cell
+    width ~ rho^-1/4). scale_with_mesh=False gives ones."""
+    if not scale_with_mesh:
+        return dataclasses.replace(
+            mesh, meshScalingDel2=torch.ones_like(mesh.meshScalingDel2),
+            meshScalingDel4=torch.ones_like(mesh.meshScalingDel4))
+    rho = mesh.meshDensity.numpy().astype(np.float64)
+    coe = mesh.cellsOnEdge.numpy()
+    rho_e = 0.5 * (rho[coe[:, 0]] + rho[coe[:, 1]])
+    dtype = mesh.meshScalingDel2.dtype
+    return dataclasses.replace(
+        mesh, meshScalingDel2=torch.from_numpy(rho_e ** -0.25).to(dtype),
+        meshScalingDel4=torch.from_numpy(rho_e ** -0.75).to(dtype))

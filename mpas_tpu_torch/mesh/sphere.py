@@ -10,7 +10,7 @@ gives the 40,962-cell (~120 km) mesh. Host numpy + scipy.
 from __future__ import annotations
 
 import numpy as np
-from scipy.spatial import SphericalVoronoi
+from scipy.spatial import SphericalVoronoi, cKDTree
 
 from mpas_tpu_torch.mesh.build import _normalize, _sphere_tri_area, build_mesh
 from mpas_tpu_torch.mesh.mesh import Mesh
@@ -88,9 +88,15 @@ def lloyd_relax(points, iterations: int = 0):
     return pts
 
 
-def sphere_voronoi_mesh(points) -> Mesh:
+def sphere_voronoi_mesh(points, merge_tol: float = 0.0) -> Mesh:
     """Unit-sphere Voronoi Mesh from generator points. Voronoi vertices that
-    coincide (symmetric configurations) are merged into one."""
+    coincide (symmetric configurations) are merged into one.
+
+    merge_tol > 0 also merges Voronoi vertices closer than merge_tol x the
+    local circumradius (distance to the nearest generator): near-cocircular
+    generator quadruples, common on variable-resolution SCVTs, otherwise
+    leave edges of near-zero dvEdge, whose 1/dvEdge rides the pv and
+    circulation stencils. A merged vertex sits at its cluster's centroid."""
     pts = _normalize(np.asarray(points, dtype=np.float64))
     sv = SphericalVoronoi(pts, radius=1.0, threshold=1e-10)
     sv.sort_vertices_of_regions()
@@ -110,6 +116,14 @@ def sphere_voronoi_mesh(points) -> Mesh:
         j = key_to_id.setdefault(key, i)
         if j != i:
             parent[find(i)] = find(j)
+
+    if merge_tol > 0.0:
+        circum, _ = cKDTree(pts).query(sv.vertices, k=1)
+        vtree = cKDTree(sv.vertices)
+        for i, j in vtree.query_pairs(merge_tol * float(np.max(circum))):
+            d = np.linalg.norm(sv.vertices[i] - sv.vertices[j])
+            if d <= merge_tol * min(circum[i], circum[j]):
+                parent[find(i)] = find(j)
 
     roots = np.array([find(i) for i in range(nv)], dtype=np.int64)
     uniq, remap = np.unique(roots, return_inverse=True)

@@ -118,6 +118,10 @@ import mpas_tpu_torch.cores.atmosphere.init_supercell
 import mpas_tpu_torch.cores.atmosphere.moisture
 import mpas_tpu_torch.cores.atmosphere.physics.driver
 import mpas_tpu_torch.mesh.planar
+import mpas_tpu_torch.mesh.varres
+import mpas_tpu_torch.cores.sw.time_integration
+import mpas_tpu_torch.cores.sw.test_cases
+import mpas_tpu_torch.cores.sw.global_diagnostics
 import mpas_tpu_torch.convert
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCK]
 sys.exit(1 if bad else 0)
