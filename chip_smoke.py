@@ -12,12 +12,18 @@ seconds):
 1. versions, and the card's name and power limit (nvidia-smi);
 2. build of the CUDA kernels from mpas_tpu_torch/csrc, one nvcc per source;
 3. each kernel against its plain PyTorch version at the shapes of every
-   path, in float64 and float32, with kernel and plain times: K1 at
-   jw_120km (40,962 cells x 26 levels), supercell_2km (9,216 x 40),
-   jw_var60_15 (23,000 x 26) and jw_120km_nz55 (40,962 x 55); K2 at the
-   TRiSK and second-derivative contractions of the three atmosphere
-   paths (maxEdges 6, and 8 on the variable-resolution mesh) and at the
-   shallow-water TRiSK pair (K = 1 and 2);
+   path, in float64 and float32: K1 at jw_120km (40,962 cells x 26
+   levels), supercell_2km (9,216 x 40), jw_var60_15 (23,000 x 26) and
+   jw_120km_nz55 (40,962 x 55); K2 at the TRiSK and second-derivative
+   contractions of the three atmosphere paths (maxEdges 6, and 8 on the
+   variable-resolution mesh) and at the shallow-water TRiSK pair (K = 1
+   and 2). Each kernel is timed on the device with the host excluded and
+   the L2 cold (device_time_ms: a CUDA graph of launches rotating over
+   copies of the inputs, >100 MB apart, replayed 7 times; min / median /
+   max ms per launch), beside the least time its bytes and operations
+   allow (bound_ms), K2's one-call library equivalent (the einsum) timed
+   the same way, the wrapper's host us per call, and the plain version's
+   host-inclusive time, which is no yardstick;
 4. small float64 trajectories on the card against the same runs on the
    CPU: JW (642 cells, 10 levels, 24 steps; worst err/tol against
    tests/golden/jw_case2.npz printed only), shallow-water TC5 (642
@@ -41,9 +47,13 @@ seconds):
      (maxEdges 8) of a quarter-radius planet, 26 levels, dt = 90 s, with
      mesh-scaled dissipation (12 K1 and 15 K2 launches per step).
 
-The second-to-last line is a JSON object with each kernel's numbers
-(launches summed over the four paths), the last one {"ok": true,
-"device": {...}}. Without CUDA it fails before any result is printed.
+The second-to-last line is a JSON object with each kernel's numbers at
+its jw_120km float32 shape (launches summed over the four paths), the
+last one {"ok": true, "device": {...}}. Without CUDA it fails before any
+result is printed.
+
+--profile DIR adds torch.profiler breakdowns of 3 steps of each of the
+four paths.
 """
 
 from __future__ import annotations
@@ -91,8 +101,102 @@ def gpu_name_and_power():
     return out.strip().splitlines()[0].strip()
 
 
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA's data sheet
+PEAK_OPS = {torch.float32: 67e12,  # outside the tensor cores, same source
+            torch.float64: 34e12}
+COLD_L2_BYTES = 100e6              # more than the 50 MB L2 between reuses
+
+
+def bound(nbytes, ops, dtype):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of the bytes over the memory rate and the operations over
+    the peak rate of their type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def rotating_copies(args, nbytes):
+    """args (a dict of tensors) and enough clones of it that more than
+    COLD_L2_BYTES of other calls' data lie between two uses of one copy."""
+    n = int(COLD_L2_BYTES // nbytes) + 2
+    return [args] + [{k: v.clone() for k, v in args.items()}
+                     for _ in range(n - 1)]
+
+
+def device_time_ms(fn, copies, reps=7, min_launches=20):
+    """Device ms per call of fn(copy), host excluded: one CUDA graph holds
+    >= min_launches calls rotating over `copies` (a cold L2 where they come
+    from rotating_copies); each of `reps` replays is timed with CUDA
+    events. Returns (min, median, max) over the replays."""
+    n = len(copies) * -(-min_launches // len(copies))
+    for c in copies:                 # warm-up, outside the capture
+        fn(c)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for j in range(n):
+            fn(copies[j % len(copies)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / n)
+    del graph
+    times.sort()
+    return times[0], times[len(times) // 2], times[-1]
+
+
+def host_us(fn, copies, calls=50):
+    """Host microseconds per call of fn(copy), launches queued, no sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for j in range(calls):
+        fn(copies[j % len(copies)])
+    us = 1e6 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def graph_floor_ms(device):
+    """Device ms per launch of a graph of 1-element adds: what a graph
+    replay adds to every launch it times."""
+    t = torch.zeros(1, device=device)
+    return device_time_ms(lambda c: c["t"].add_(1.0), [{"t": t}],
+                          min_launches=200)
+
+
+def timing_numbers(fn, copies, nbytes, ops, dtype, library=None):
+    """The device-time numbers of one kernel at one shape; `library`, a
+    function of a copy, is timed the same way where there is one."""
+    lo, med, hi = device_time_ms(fn, copies)
+    b_ms, b_by = bound(nbytes, ops, dtype)
+    out = dict(ms=med, ms_min=lo, ms_max=hi, bound_ms=b_ms, bound_by=b_by,
+               pct_of_bound=100.0 * b_ms / med, library_ms=None,
+               host_us=host_us(fn, copies), bytes=nbytes)
+    if library is not None:
+        out["library_ms"] = device_time_ms(library, copies)[1]
+    return out
+
+
+def timing_text(t):
+    lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+    return (f"device {t['ms_min']:.4f} / {t['ms']:.4f} / {t['ms_max']:.4f} "
+            f"ms (min/median/max, cold L2), bound {t['bound_ms']:.4f} ms by "
+            f"{t['bound_by']} ({t['bytes'] / 1e6:.1f} MB), "
+            f"{t['pct_of_bound']:.1f}% of bound; library {lib}; wrapper "
+            f"host {t['host_us']:.1f} us/call")
+
+
 def cuda_time_ms(fn, reps=20):
-    """Mean ms per call from CUDA events, after one warm-up call."""
+    """Mean ms per call from CUDA events around `reps` calls, after one
+    warm-up call; host work included (the plain versions' timing)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -107,37 +211,44 @@ def cuda_time_ms(fn, reps=20):
 
 def check_kernels(device):
     """Phase 3: each kernel against its plain version at every path's
-    shapes. Returns {(kernel, path, dtype, shape): numbers}."""
-    from mpas_tpu_torch.kernels.acoustic import (acoustic_cell_update,
-                                                 acoustic_cell_update_plain,
-                                                 example_args)
-    from mpas_tpu_torch.kernels.tinydot import tinydot, tinydot_plain
+    shapes, and timed on the device. Returns {(kernel, path, dtype,
+    shape): numbers}."""
+    from mpas_tpu_torch.kernels import acoustic, tinydot as k2
 
     rel_tol = {"acoustic_cell_update": {torch.float64: 1e-12,
                                         torch.float32: 1e-5},
                "tinydot": {torch.float64: 1e-12, torch.float32: 1e-6}}
+    print(f"graph floor (1-element add): {graph_floor_ms(device)[1]:.4f} "
+          "ms per launch")
     results = {}
     rng = np.random.default_rng(0)
     for path, nc, nz in K1_SHAPES:
         for dtype in (torch.float64, torch.float32):
             args = {k: torch.from_numpy(v).to(device, dtype)
-                    for k, v in example_args(nc, nz).items()}
-            got = acoustic_cell_update(nz, 0.1, 120.0, **args)
-            ref = acoustic_cell_update_plain(nz, 0.1, 120.0, **args)
+                    for k, v in acoustic.example_args(nc, nz).items()}
+            got = acoustic.acoustic_cell_update(nz, 0.1, 120.0, **args)
+            ref = acoustic.acoustic_cell_update_plain(nz, 0.1, 120.0, **args)
             scale = max(float(r.abs().max()) for r in ref)
             err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
             tol = rel_tol["acoustic_cell_update"][dtype] * scale
-            ms = cuda_time_ms(lambda: acoustic_cell_update(
-                nz, 0.1, 120.0, **args))
-            plain_ms = cuda_time_ms(lambda: acoustic_cell_update_plain(
-                nz, 0.1, 120.0, **args))
+            del got, ref
+            size = args["rs_pre"].element_size()
+            nbytes = acoustic.bytes_moved(nc, nz, size)
+            t = timing_numbers(
+                lambda a: acoustic.acoustic_cell_update(nz, 0.1, 120.0, **a),
+                rotating_copies(args, nbytes), nbytes,
+                acoustic.operations(nc, nz), dtype)
+            plain_ms = cuda_time_ms(lambda: acoustic
+                                    .acoustic_cell_update_plain(
+                                        nz, 0.1, 120.0, **args))
             print(f"K1 acoustic_cell_update {path} nC={nc} nz={nz} {dtype}: "
                   f"max_abs_err {err:.3e} (tol {tol:.3e}, max|plain| "
-                  f"{scale:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                  "ms")
+                  f"{scale:.3e}); (cols, threads) "
+                  f"{acoustic.plan(nz, size)[:2]}; {timing_text(t)}; plain "
+                  f"{plain_ms:.4f} ms (host-inclusive events, no yardstick)")
             require(err <= tol, "K1 disagrees with its plain version")
             results[("acoustic_cell_update", path, dtype, (nc, nz))] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                max_abs_err=err, plain_ms=plain_ms, **t,
                 shape=f"nC={nc} nz={nz} {str(dtype).split('.')[-1]}")
 
     # the paths' contractions (ops/stencils.py and advection.py): TRiSK
@@ -151,33 +262,46 @@ def check_kernels(device):
                 w = torch.from_numpy(w).to(device, dtype)
                 x = torch.from_numpy(rng.standard_normal((nc, I, K))).to(
                     device, dtype)
-                got, ref = tinydot(w, x), tinydot_plain(w, x)
+                got, ref = k2.tinydot(w, x), k2.tinydot_plain(w, x)
                 scale = float(ref.abs().max())
                 err = float((got - ref).abs().max())
                 tol = rel_tol["tinydot"][dtype] * scale
                 print(f"K2 tinydot {path} (nC,P,I,K)=({nc},{P},{I},{K}) "
                       f"{dtype}: max_abs_err {err:.3e} (tol {tol:.3e})")
                 require(err <= tol, "K2 disagrees with its plain version")
-                if dtype == torch.float32:
-                    ms = cuda_time_ms(lambda: tinydot(w, x))
-                    plain_ms = cuda_time_ms(lambda: tinydot_plain(w, x))
-                    print(f"K2 f32 time {path} at (P,I,K)=({P},{I},{K}): "
-                          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-                    results[("tinydot", path, dtype, (P, I, K))] = dict(
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        shape=f"nC={nc} P={P} I={I} K={K} float32")
+                if dtype != torch.float32:
+                    continue
+                nbytes = k2.bytes_moved(nc, P, I, K, w.element_size())
+                t = timing_numbers(
+                    lambda a: k2.tinydot(a["w"], a["x"]),
+                    rotating_copies({"w": w, "x": x}, nbytes), nbytes,
+                    k2.operations(nc, P, I, K), dtype,
+                    library=lambda a: torch.einsum("cpi,cik->cpk", a["w"],
+                                                   a["x"]))
+                plain_ms = cuda_time_ms(lambda: k2.tinydot_plain(w, x))
+                print(f"K2 f32 time {path} at (P,I,K)=({P},{I},{K}), "
+                      f"(cols, threads) {k2.plan(P, I, K, 4)[:2]}: "
+                      f"{timing_text(t)}; plain {plain_ms:.4f} ms "
+                      "(host-inclusive events, no yardstick)")
+                results[("tinydot", path, dtype, (P, I, K))] = dict(
+                    max_abs_err=err, plain_ms=plain_ms, **t,
+                    shape=f"nC={nc} P={P} I={I} K={K} float32")
     return results
 
 
 def kernel_json_numbers(results):
-    """The JSON line's numbers per kernel: the times at the jw_120km f32
-    shape of most of its calls, the worst f32 error over all shapes."""
+    """The JSON line's numbers per kernel: the times and bound at the
+    jw_120km f32 shape of most of its calls, the worst f32 error over all
+    shapes."""
+    keys = ("ms", "ms_min", "ms_max", "plain_ms", "bound_ms", "bound_by",
+            "pct_of_bound", "library_ms", "shape")
     out = {}
     for name, key in (("acoustic_cell_update", (40962, 26)),
                       ("tinydot", (6, 6, 52))):
         f32 = {k: v for k, v in results.items()
                if k[0] == name and k[2] == torch.float32}
-        out[name] = dict(f32[(name, "jw_120km", torch.float32, key)],
+        at = f32[(name, "jw_120km", torch.float32, key)]
+        out[name] = dict({k: at[k] for k in keys},
                          max_abs_err=max(v["max_abs_err"]
                                          for v in f32.values()))
     return out
@@ -582,10 +706,11 @@ def profile_steps(name, step, out_dir, module=None, regions=(), steps=3):
     for label, prefix in (("K1", "void acoustic_cell_kernel"),
                           ("K2", "void tinydot_kernel")):
         ks = [e for e in kern if e.key.startswith(prefix)]
-        print(f"  {label} {prefix[5:]}: "
-              f"{sum(e.count for e in ks) / steps:.0f} launches/step, "
-              f"{sum(e.self_device_time_total for e in ks) / 1e3 / steps:.3f}"
-              " ms/step")
+        n = sum(e.count for e in ks)
+        us = sum(e.self_device_time_total for e in ks)
+        print(f"  {label} {prefix[5:]}: {n / steps:.0f} launches/step, "
+              f"{us / 1e3 / steps:.3f} ms/step, "
+              f"{us / n if n else 0.0:.2f} us/launch in the path")
     for e in sorted((e for e in events if e.key in regions
                      and e.device_type == DeviceType.CPU),
                     key=lambda e: -e.device_time_total):
@@ -623,9 +748,10 @@ def timed(label, fn, *args):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
-                        help="also profile 3 steps of sw_tc5_120km, "
-                             "supercell_2km and jw_var60_15; the kernel "
-                             "tables go to DIR/profile_<path>.txt")
+                        help="also profile 3 steps of jw_120km, "
+                             "sw_tc5_120km, supercell_2km and jw_var60_15; "
+                             "the kernel tables go to "
+                             "DIR/profile_<path>.txt")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -645,7 +771,8 @@ def main():
           f"({klib.path.name}); nvcc/ptxas:\n{klib.log.strip()}")
 
     from mpas_tpu_torch.mesh.sphere import icosahedral_mesh
-    kernel_results = timed("kernel parity", check_kernels, device)
+    kernel_results = timed("kernel parity and device time", check_kernels,
+                           device)
     mesh8 = icosahedral_mesh(8, lloyd_iters=2)
     timed("small f64 JW", check_small_trajectory, device, mesh8)
     timed("small f64 sw_tc5", check_small_sw, device, mesh8)
@@ -656,12 +783,14 @@ def main():
     # scales its own copy
     mesh64 = timed("icosahedral_mesh(64, 4)", icosahedral_mesh, 64, 4)
     counts = {}
-    _, grid, _, counts["jw_120km"] = timed(
+    cfg, grid, carry, counts["jw_120km"] = timed(
         "jw_120km", run_path, "jw_120km", device, card,
         lambda: jw_setup(mesh64, 26, 720.0, 120000.0))[:4]
     require((grid.mesh.nCells, grid.vert.nz) == (40962, 26),
             "jw_120km built the wrong size")
-    del grid
+    if args.profile:
+        profile_srk3("jw_120km", cfg, grid, carry, args.profile)
+    del grid, carry
     sw = timed("sw_tc5_120km", run_sw_path, device, card, mesh64)
     counts["sw_tc5_120km"] = sw[-1]
     if args.profile:

@@ -8,6 +8,10 @@ solve, Rayleigh w-damping, rho_pp/rtheta_pp back-substitution, wwAvg).
 All cell arrays are (nC, nz) or (nC, nz+1); cofrz/rdzw are (nz,).
 rs_pre/ts_pre already hold rho_pp0 + dts*tend + flux; wdamp holds
 zz_int * rho_int * w. Returns (rw_p, rho_pp, rtheta_pp, wwAvg).
+
+The kernel runs one block per tile of consecutive columns; `plan` picks the
+tile on the host, and `bytes_moved`/`operations` give the work that bounds
+its time on the card.
 """
 
 from __future__ import annotations
@@ -32,6 +36,55 @@ _ORDER = ("rs_pre", "ts_pre", "rw_p0", "wwavg0", "tend_rw", "rho_pp0",
           "rtheta_pp0", "cofwz", "cofwr", "cofwt", "coftz", "cofrz", "rdzw",
           "a_tri", "alpha_tri", "gamma_tri", "zz", "dss_int", "dw_term",
           "wdamp")
+
+
+# Tiles of at most 16 columns and 40 KB, picked by a sweep of 4-32 columns
+# at every path's shape on the H100 (16 columns at 26 levels, 8 at 40 and
+# 55; PERF.md)
+SMEM_BUDGET = 40 * 1024
+MAX_COLS = 16
+
+
+def values_per_column(nz: int) -> int:
+    """Values K1 moves per column: its 6 level and 12 interface inputs
+    read once, its 2 level and 2 interface outputs written once."""
+    return 8 * nz + 14 * (nz + 1)
+
+
+def bytes_moved(nc: int, nz: int, itemsize: int) -> int:
+    """Least bytes one call moves: every column, plus cofrz and rdzw."""
+    return itemsize * (nc * values_per_column(nz) + 2 * nz)
+
+
+def operations(nc: int, nz: int) -> int:
+    """Floating-point operations of one call, counted from the kernel's
+    arithmetic: 18 per level (rs/ts corrections, back-substitution) and 45
+    per inner interface (right-hand side 30, sweeps 4, damping and wwAvg
+    11), a division counted as one."""
+    return nc * (18 * nz + 45 * (nz - 1))
+
+
+def smem_bytes(cols: int, nz: int, itemsize: int) -> int:
+    """Shared memory of a tile of `cols` columns (csrc/acoustic.cu:
+    tile_bytes): the 6 level and 12 interface input tiles, then two sweep
+    rows per column padded to an odd stride, each region 16-byte
+    aligned."""
+    def region(values):
+        return -(-values * itemsize // 16) * 16
+    return (6 * region(cols * nz) + 12 * region(cols * (nz + 1))
+            + 2 * region(cols * ((nz + 1) | 1)))
+
+
+def plan(nz: int, itemsize: int):
+    """(cols, threads, shared-memory bytes) of K1's tiles (kernels.fit_tile),
+    a thread per interface value up to 256."""
+    if nz < 2:
+        raise ValueError(f"acoustic_cell_update: nz={nz} < 2")
+    cols, smem = kernels.fit_tile(
+        "acoustic_cell_update", lambda c: smem_bytes(c, nz, itemsize),
+        SMEM_BUDGET, MAX_COLS)
+    threads = min(kernels.MAX_THREADS, -(-cols * (nz + 1) // 32) * 32)
+    return cols, threads, smem
 
 
 def example_args(nc: int, nz: int, seed: int = 0):
@@ -109,12 +162,11 @@ def acoustic_cell_update(nz: int, epssm: float, dts, rs_pre, ts_pre, rw_p0,
     if rs_pre.device.type != "cuda":
         raise ValueError(f"acoustic_cell_update: no kernel for device "
                          f"{rs_pre.device}")
-    if nz < 2:
-        raise ValueError(f"acoustic_cell_update: nz={nz} < 2")
     nc = rs_pre.shape[0]
     dtype = rs_pre.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"acoustic_cell_update: unsupported dtype {dtype}")
+    cols, threads, smem = plan(nz, rs_pre.element_size())
     shapes = {**{n: (nc, nz) for n in _LEVEL},
               **{n: (nc, nz + 1) for n in _INTERFACE},
               **{n: (nz,) for n in _COLUMN}}
@@ -129,7 +181,6 @@ def acoustic_cell_update(nz: int, epssm: float, dts, rs_pre, ts_pre, rw_p0,
         if not t.is_contiguous():
             raise ValueError(f"acoustic_cell_update: {name} is not "
                              "contiguous")
-
     outs = (torch.empty((nc, nz + 1), dtype=dtype, device=rs_pre.device),
             torch.empty((nc, nz), dtype=dtype, device=rs_pre.device),
             torch.empty((nc, nz), dtype=dtype, device=rs_pre.device),
@@ -141,7 +192,8 @@ def acoustic_cell_update(nz: int, epssm: float, dts, rs_pre, ts_pre, rw_p0,
     fn = (lib.mpas_acoustic_cell_update_f32 if dtype == torch.float32
           else lib.mpas_acoustic_cell_update_f64)
     stream = torch.cuda.current_stream(rs_pre.device).cuda_stream
-    check_launch(fn(rs_pre.device.index, nc, nz, float(epssm), float(dts),
-                    ins, ptr_out, stream), "acoustic_cell_update")
+    check_launch(fn(rs_pre.device.index, nc, nz, cols, threads, smem,
+                    float(epssm), float(dts), ins, ptr_out, stream),
+                 "acoustic_cell_update")
     kernels.launch_counts["acoustic_cell_update"] += 1
     return outs

@@ -9,10 +9,10 @@ one more nvcc links the objects:
     nvcc -gencode arch=compute_90a,code=sm_90a -shared
          -o build/mpas_tpu_torch/<lib>.so <obj>.o ...
 
-The library name carries a hash of the sources and flags, so an edit
-rebuilds and an unchanged tree reuses the last build. It is built at first
-use, from the checkout's sources only, into build/mpas_tpu_torch/ at the
-repository root.
+The library name carries a hash of the sources (*.cu and the *.cuh they
+include) and flags, so an edit rebuilds and an unchanged tree reuses the
+last build. It is built at first use, from the checkout's sources only,
+into build/mpas_tpu_torch/ at the repository root.
 """
 
 from __future__ import annotations
@@ -37,13 +37,16 @@ LINK_FLAGS = [*ARCH_FLAGS, "-shared"]
 _P = ctypes.c_void_p
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _SIGNATURES = {
-    # (device, nC, nz, epssm, dts, inputs[20], outputs[4], stream)
+    # (device, nC, nz, cols, threads, smem, epssm, dts, inputs[20],
+    #  outputs[4], stream)
     "mpas_acoustic_cell_update": [ctypes.c_int, ctypes.c_longlong,
-                                  ctypes.c_int, ctypes.c_double,
+                                  ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_longlong, ctypes.c_double,
                                   ctypes.c_double, _PP, _PP, _P],
-    # (device, nC, P, I, K, w, x, out, stream)
+    # (device, nC, P, I, K, cols, threads, smem, w, x, out, stream)
     "mpas_tinydot": [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                     ctypes.c_int, ctypes.c_int, _P, _P, _P, _P],
+                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_longlong, _P, _P, _P, _P],
 }
 
 
@@ -69,7 +72,7 @@ def load_library() -> KernelLibrary:
     """Build (if needed) and load the kernel library; cached per process."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cu*")):       # the headers too
         digest.update(src.read_bytes())
     path = BUILD_DIR / f"libmpas_kernels-{digest.hexdigest()[:16]}.so"
     build_seconds, log = 0.0, ""

@@ -8,19 +8,26 @@ no JAX, so this file imports none and runs without the suite's conftest:
 Shapes are those of the paths (jw_120km: 40,962 cells x 26 levels;
 supercell_2km: 9,216 cells x 40 levels; jw_var60_15: 23,000 cells x 26
 levels at maxEdges 8; sw_tc5_120km: 40,962 cells at K = 1 and 2).
+Beyond those, the tiled kernels' edge cases: column and cell counts that
+no tile size divides, level counts from 2 to 500 (where K1's tile
+shrinks), and operands that start one element into their storage.
 Tolerances: float64 1e-12 x max|plain| (summation order only); float32
 1e-5 for K1, whose Thomas recurrence amplifies differently contracted
 FMAs, 1e-6 for K2.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
 import torch
 
 from mpas_tpu_torch import kernels
+from mpas_tpu_torch.kernels import acoustic, tinydot as k2
 from mpas_tpu_torch.kernels.acoustic import (acoustic_cell_update,
                                              acoustic_cell_update_plain,
                                              example_args)
+from mpas_tpu_torch.kernels.build import load_library
 from mpas_tpu_torch.kernels.tinydot import tinydot, tinydot_plain
 
 # (nC, nz) per path, and K1 at jw_120km_nz55's 55 levels
@@ -79,6 +86,121 @@ def test_tinydot_kernel_matches_plain(cuda_device, nc, P, I, K, dtype, rel):
     assert_close([got], [tinydot_plain(w, x)], rel)
 
 
+def offset_view(t):
+    """A contiguous copy of t that starts one element into its storage, so
+    that its data pointer is not 16-byte aligned."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.storage_offset() == 1
+    return view
+
+
+def acoustic_case(cuda_device, nc, nz, dtype, rel, offset=False):
+    a = {k: torch.from_numpy(v).to(cuda_device, dtype)
+         for k, v in example_args(nc, nz, seed=nc + nz).items()}
+    if offset:
+        a = {k: offset_view(v) for k, v in a.items()}
+    kernels.reset_launch_counts()
+    got = acoustic_cell_update(nz, 0.1, 120.0, **a)
+    assert kernels.launch_counts["acoustic_cell_update"] == 1
+    assert_close(got, acoustic_cell_update_plain(nz, 0.1, 120.0, **a), rel)
+
+
+F64_F32 = [(torch.float64, 1e-12), (torch.float32, 1e-5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc", [1, 33, 9217, 40961])
+@pytest.mark.parametrize("dtype,rel", F64_F32)
+def test_acoustic_kernel_ragged_last_tile(cuda_device, nc, dtype, rel):
+    """Column counts that no tile size divides."""
+    acoustic_case(cuda_device, nc, 26, dtype, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nz", [2, 37, 128, 500])
+def test_acoustic_kernel_level_counts_f64(cuda_device, nz):
+    """nz = 2, an odd nz, and 128 and 500 levels in float64, where the tile
+    shrinks to one column (at 500 levels of over 48 KB of shared
+    memory)."""
+    acoustic_case(cuda_device, 1001, nz, torch.float64, 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", F64_F32)
+def test_acoustic_kernel_storage_offset(cuda_device, dtype, rel):
+    """Inputs whose storage starts one element in: tiles start unaligned."""
+    acoustic_case(cuda_device, 4097, 26, dtype, rel, offset=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 2, 80])
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("dtype,rel", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-6)])
+def test_tinydot_kernel_ragged_and_offset(cuda_device, K, offset, dtype,
+                                          rel):
+    """K = 1, 2 and 80 on 40,961 cells, which no tile size divides, with
+    operands aligned or starting one element into their storage (the
+    kernel then stages them with scalar loads)."""
+    rng = np.random.default_rng(K)
+    w = torch.from_numpy(rng.standard_normal((40961, 6, 6))).to(
+        cuda_device, dtype)
+    x = torch.from_numpy(rng.standard_normal((40961, 6, K))).to(
+        cuda_device, dtype)
+    if offset:
+        w, x = offset_view(w), offset_view(x)
+    kernels.reset_launch_counts()
+    got = tinydot(w, x)
+    assert kernels.launch_counts["tinydot"] == 1
+    assert_close([got], [tinydot_plain(w, x)], rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["acoustic_cell_update", "tinydot"])
+@pytest.mark.parametrize("fault", ["smem", "threads"])
+def test_launchers_refuse_a_plan_that_is_not_their_layout(cuda_device, name,
+                                                          fault):
+    """The C entry points hold the host's plan to the kernel's own tile
+    layout: shared memory other than the kernel's bytes for that tile, or
+    more threads than its launch bounds, return cudaErrorInvalidValue (1)
+    and launch nothing."""
+    lib = load_library().lib
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    if name == "acoustic_cell_update":
+        cols, threads, smem = acoustic.plan(26, 4)
+        a = {k: torch.from_numpy(v).to(cuda_device, torch.float32)
+             for k, v in example_args(33, 26).items()}
+        outs = [torch.zeros_like(a["rw_p0"]), torch.zeros_like(a["rs_pre"]),
+                torch.zeros_like(a["rs_pre"]), torch.zeros_like(a["rw_p0"])]
+        ins = (ctypes.c_void_p * 20)(*[a[n].data_ptr()
+                                       for n in acoustic._ORDER])
+        ptr_out = (ctypes.c_void_p * 4)(*[o.data_ptr() for o in outs])
+
+        def call(threads, smem):
+            return lib.mpas_acoustic_cell_update_f32(
+                cuda_device.index, 33, 26, cols, threads, smem, 0.1,
+                120.0, ins, ptr_out, stream)
+    else:
+        cols, threads, smem = k2.plan(6, 6, 52, 4)
+        w = torch.ones(33, 6, 6, device=cuda_device)
+        x = torch.ones(33, 6, 52, device=cuda_device)
+        outs = [torch.zeros(33, 6, 52, device=cuda_device)]
+
+        def call(threads, smem):
+            return lib.mpas_tinydot_f32(
+                cuda_device.index, 33, 6, 6, 52, cols, threads, smem,
+                w.data_ptr(), x.data_ptr(), outs[0].data_ptr(), stream)
+    bad = call(512, smem) if fault == "threads" else call(threads, smem + 16)
+    torch.cuda.synchronize()
+    assert bad == 1
+    assert all(float(o.abs().max()) == 0.0 for o in outs)
+    assert call(threads, smem) == 0
+    torch.cuda.synchronize()
+    assert float(outs[0].abs().max()) > 0.0
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_bad_cuda_input(cuda_device):
     w = torch.zeros(8, 6, 6, device=cuda_device)
@@ -89,6 +211,13 @@ def test_wrappers_refuse_bad_cuda_input(cuda_device):
         tinydot(w, x.double())
     with pytest.raises(TypeError):
         tinydot(w.half(), x.half())
+    with pytest.raises(ValueError):     # I above the kernel's register row
+        tinydot(torch.zeros(8, 6, 17, device=cuda_device),
+                torch.zeros(8, 17, 26, device=cuda_device))
+    a = {k: torch.from_numpy(v).to(cuda_device)
+         for k, v in example_args(8, 1).items()}
+    with pytest.raises(ValueError):     # nz < 2
+        acoustic_cell_update(1, 0.1, 120.0, **a)
 
 
 @pytest.mark.cuda
