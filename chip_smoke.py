@@ -16,11 +16,13 @@ seconds):
    levels), supercell_2km (9,216 x 40), jw_var60_15 (23,000 x 26) and
    jw_120km_nz55 (40,962 x 55); K2 at the TRiSK and second-derivative
    contractions of the three atmosphere paths (maxEdges 6, and 8 on the
-   variable-resolution mesh) and at the shallow-water TRiSK pair (K = 1
-   and 2). Each kernel is timed on the device with the host excluded and
-   the L2 cold (device_time_ms: a CUDA graph of launches rotating over
-   copies of the inputs, >100 MB apart, replayed 7 times; min / median /
-   max ms per launch), beside the least time its bytes and operations
+   variable-resolution mesh), at the shallow-water TRiSK pair (K = 1
+   and 2) and at the ocean channel's three (6,336 cells: the barotropic
+   Coriolis reconstruction at K = 1, the baroclinic one at K = 20, the
+   q-term at K = 40). Each kernel is timed on the device with the host
+   excluded and the L2 cold (device_time_ms: a CUDA graph of launches
+   rotating over copies of the inputs, >100 MB apart, replayed 7 times;
+   min / median / max ms per launch), beside the least time its bytes and operations
    allow (bound_ms), K2's one-call library equivalent (the einsum) timed
    the same way, the wrapper's host us per call, and the plain version's
    host-inclusive time, which is no yardstick;
@@ -29,9 +31,10 @@ seconds):
    tests/golden/jw_case2.npz printed only), shallow-water TC5 (642
    cells, 48 steps; against tests/golden/sw_tc5.npz printed only), JW on
    a 1,200-cell variable-resolution mesh (10 levels, 3 steps, mesh
-   scaling on, a quarter of the Earth's radius), and the moist supercell
+   scaling on, a quarter of the Earth's radius), the moist supercell
    (144 cells, 16 levels, seeded cloud and rain, 6 steps with Kessler
-   microphysics);
+   microphysics), and the ocean's baroclinic channel (192 cells, 10
+   levels: 3 split-explicit steps of 300 s and 4 RK4 steps of 30 s);
 5. the full-size paths in float32 (setup, then timed steps), each with
    finite fields, conserved mass and launch counts that prove every step
    went through its kernels:
@@ -45,15 +48,19 @@ seconds):
      timed steps rain), also conserving total water;
    - jw_var60_15: JW on the 23,000-cell 60-15 km variable-resolution mesh
      (maxEdges 8) of a quarter-radius planet, 26 levels, dt = 90 s, with
-     mesh-scaled dissipation (12 K1 and 15 K2 launches per step).
+     mesh-scaled dissipation (12 K1 and 15 K2 launches per step);
+   - ocean_channel_10km: the ocean's baroclinic channel on the 6,336-cell
+     10-km channel mesh, 20 levels, split-explicit at dt = 300 s (245 K2
+     launches per step, from the config: 240 in the barotropic subcycles,
+     no K1), conserving volume and heat, salinity uniform, walls closed.
 
 The second-to-last line is a JSON object with each kernel's numbers at
-its jw_120km float32 shape (launches summed over the four paths), the
+its jw_120km float32 shape (launches summed over the five paths), the
 last one {"ok": true, "device": {...}}. Without CUDA it fails before any
 result is printed.
 
 --profile DIR adds torch.profiler breakdowns of 3 steps of each of the
-four paths.
+five paths.
 """
 
 from __future__ import annotations
@@ -79,13 +86,17 @@ K1_PER_STEP = 12   # 3 dynamics substeps x (1 + 1 + 2) acoustic iterations
 K2_PER_STEP = {"jw_120km": 3 + 9 + 3 * 1, "supercell_2km": 3 + 9 + 3 * 3,
                "jw_var60_15": 3 + 9 + 3 * 1}
 SW_K2_PER_STEP = 4 * 2             # 4 RK stages x (tangential + q pair)
+OCEAN_CELLS = 6336                 # channel_hex_mesh(32, 200, 10 km)
+OCEAN_NZ = 20
 # (path, nC, nz) of K1, and (path, nC, (P, I, K) ...) of K2
 K1_SHAPES = (("jw_120km", 40962, 26), ("supercell_2km", 9216, 40),
              ("jw_var60_15", 23000, 26), ("jw_120km_nz55", 40962, 55))
 K2_SHAPES = (("jw_120km", 40962, ((6, 6, 26), (6, 6, 52), (3, 6, 26))),
              ("supercell_2km", 9216, ((6, 6, 40), (6, 6, 80), (3, 6, 40))),
              ("jw_var60_15", 23000, ((8, 8, 26), (8, 8, 52), (3, 8, 26))),
-             ("sw_tc5_120km", 40962, ((6, 6, 1), (6, 6, 2))))
+             ("sw_tc5_120km", 40962, ((6, 6, 1), (6, 6, 2))),
+             ("ocean_channel_10km", OCEAN_CELLS, ((6, 6, 1), (6, 6, 20),
+                                                  (6, 6, 40))))
 
 
 def require(cond, msg):
@@ -655,6 +666,127 @@ def run_var_path(device, card):
     return cfg, grid, carry, counts
 
 
+def ocean_setup(nx, ny, nz, dt, integrator="split_explicit"):
+    """The baroclinic channel on channel_hex_mesh(nx, ny, 10 km) with nz
+    levels (bench.py:132-158 at 32 x 200 and 20 levels)."""
+    from mpas_tpu_torch.cores.ocean.core import OcnConfig
+    from mpas_tpu_torch.cores.ocean.init_channel import (
+        init_baroclinic_channel)
+    from mpas_tpu_torch.mesh.planar import channel_hex_mesh
+    cfg = OcnConfig(config_dt=dt, config_time_integrator=integrator)
+    return (cfg, *init_baroclinic_channel(channel_hex_mesh(nx, ny, 10000.0),
+                                          nz=nz))
+
+
+def check_small_ocean(device):
+    """Phase 4: the f64 baroclinic channel of tests/test_ocean_core.py
+    (192 cells, 10 levels) on the card vs the CPU: 3 split-explicit steps
+    at dt = 300 s and 4 RK4 steps at dt = 30 s."""
+    from mpas_tpu_torch.cores.ocean.core import run_steps
+    for integrator, dt, steps in (("split_explicit", 300.0, 3),
+                                  ("RK4", 30.0, 4)):
+        cfg, grid, state = ocean_setup(8, 26, 10, dt, integrator)
+        fields = {}
+        for where, dev in (("cpu", torch.device("cpu")), ("cuda", device)):
+            f64 = torch.float64
+            t0 = time.perf_counter()
+            out = run_steps(grid.to(dev, f64), cfg, state.to(dev, f64),
+                            steps)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            print(f"small f64 ocean {integrator} on {where}: {steps} steps "
+                  f"in {time.perf_counter() - t0:.2f} s")
+            fields[where] = {k: getattr(out, k).cpu().numpy()
+                             for k in ("u", "layerThickness", "tracers",
+                                       "ubtr")}
+        require(float(np.abs(fields["cpu"]["u"]).max()) > 0.0,
+                "the small ocean run did not move")
+        compare_scaled(f"ocean {integrator}", fields)
+
+
+def ocean_volume_heat(grid, state):
+    """(volume, heat) = (sum h area, sum h T area), summed in float64."""
+    area = grid.mesh.areaCell.double()[:, None]
+    h = state.layerThickness.double()
+    return (float((h * area).sum()),
+            float((h * state.tracers[..., 0].double() * area).sum()))
+
+
+def run_ocean_path(device, card):
+    """Phase 5, ocean_channel_10km (bench.py:132-158): the baroclinic
+    channel on channel_hex_mesh(32, 200, 10 km), 20 levels, split-explicit
+    at dt = 300 s, in float32, through run_steps: host setup, copy to the
+    card, one warm step, MAIN_STEPS timed steps, one run_steps call per
+    step; the launch counters are zeroed just before the warm step and
+    read after every step."""
+    from mpas_tpu_torch import kernels
+    from mpas_tpu_torch.cores.ocean.core import (
+        run_steps, tinydot_launches_per_split_step)
+    name = "ocean_channel_10km"
+    t0 = time.perf_counter()
+    cfg, grid, state = ocean_setup(32, 200, OCEAN_NZ, 300.0)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f32 = torch.float32
+    grid, state = grid.to(device, f32), state.to(device, f32)
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    mesh = grid.mesh
+    nc = mesh.nCells
+    print(f"{name} setup: {nc} cells x {grid.nz} levels, {mesh.nEdges} "
+          f"edges, maxEdges {mesh.maxEdges}; host build {host_s:.2f} s, "
+          f"copy to card {copy_s:.2f} s")
+    require((nc, grid.nz, mesh.maxEdges) == (OCEAN_CELLS, OCEAN_NZ, 6),
+            f"{name} built the wrong size")
+
+    k2 = tinydot_launches_per_split_step(cfg)
+    vol0, heat0 = ocean_volume_heat(grid, state)
+    kernels.reset_launch_counts()
+    per_step = []
+    state = run_steps(grid, cfg, state, 1)                     # warm step
+    per_step.append(dict(kernels.launch_counts))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    for _ in range(MAIN_STEPS):
+        state = run_steps(grid, cfg, state, 1)
+        per_step.append(dict(kernels.launch_counts))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = per_step[-1]
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+
+    steps = MAIN_STEPS + 1
+    require(counts["acoustic_cell_update"] == 0, counts)
+    k2_seen = [b["tinydot"] - a["tinydot"]
+               for a, b in zip([{"tinydot": 0}] + per_step, per_step)]
+    require(k2_seen == [k2] * steps,
+            f"K2 launches per step {k2_seen}, the config implies {k2}")
+    for k in ("u", "layerThickness", "tracers", "ubtr"):
+        require(bool(torch.isfinite(getattr(state, k)).all()), k)
+    vol1, heat1 = ocean_volume_heat(grid, state)
+    vol_drift = abs(vol1 - vol0) / vol0
+    heat_drift = abs(heat1 - heat0) / abs(heat0)
+    s_err = float((state.tracers[..., 1].double() - 35.0).abs().max())
+    # four f32 roundings of 35 per step
+    s_tol = 4 * steps * torch.finfo(f32).eps * 35.0
+    u_wall = float(state.u[mesh.boundaryEdge > 0].abs().max())
+    ms = 1e3 * elapsed / MAIN_STEPS
+    print(f"{name} float32 on {card}: {MAIN_STEPS} steps in {elapsed:.3f} s "
+          f"= {ms:.2f} ms/step, {nc * MAIN_STEPS / elapsed:.1f} cell-column "
+          f"updates/s (columns of {grid.nz} levels: not comparable with "
+          f"the atmosphere's 26 or 40); peak device memory {peak_gb:.2f} "
+          f"GB; volume drift {vol_drift:.3e}, heat drift {heat_drift:.3e}, "
+          f"max |S - 35| {s_err:.3e} (bound {s_tol:.3e}), max |u| on the "
+          f"walls {u_wall:g}, max |u| {float(state.u.abs().max()):.4f} m/s; "
+          f"launches {counts} (per step: K1 0, K2 {k2})")
+    require(vol_drift <= 1e-5, f"volume not conserved: {vol_drift:.3e}")
+    require(heat_drift <= 1e-5, f"heat not conserved: {heat_drift:.3e}")
+    require(s_err <= s_tol, f"salinity left 35: {s_err:.3e}")
+    require(u_wall == 0.0, f"flow through the walls: {u_wall:g}")
+    return cfg, grid, state, counts
+
+
 PROFILE_REGIONS = ("compute_dyn_tend", "acoustic_step", "solve_diagnostics",
                    "recover_large_step_variables", "vert_imp_coefs",
                    "set_smlstep_pert_variables", "advance_scalars",
@@ -749,8 +881,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
                         help="also profile 3 steps of jw_120km, "
-                             "sw_tc5_120km, supercell_2km and jw_var60_15; "
-                             "the kernel tables go to "
+                             "sw_tc5_120km, supercell_2km, jw_var60_15 and "
+                             "ocean_channel_10km; the kernel tables go to "
                              "DIR/profile_<path>.txt")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -778,6 +910,7 @@ def main():
     timed("small f64 sw_tc5", check_small_sw, device, mesh8)
     timed("small f64 varres JW", check_small_varres, device)
     timed("small f64 supercell", check_small_supercell, device)
+    timed("small f64 ocean", check_small_ocean, device)
 
     # one 40,962-cell mesh for jw_120km and sw_tc5_120km: each init
     # scales its own copy
@@ -813,6 +946,18 @@ def main():
     if args.profile:
         profile_srk3("jw_var60_15", cfg, grid, carry, args.profile)
     del grid, carry
+    cfg, grid, state, counts["ocean_channel_10km"] = timed(
+        "ocean_channel_10km", run_ocean_path, device, card)
+    if args.profile:
+        from mpas_tpu_torch.cores.ocean import core as ocean_core
+        box = [state]
+
+        def ocean_step():
+            box[0] = ocean_core.ocn_timestep(grid, cfg, box[0],
+                                             cfg.config_dt)
+        profile_steps("ocean_channel_10km", ocean_step, args.profile,
+                      ocean_core, ("split_step", "implicit_vertical_mix"))
+    del grid, state
 
     numbers = kernel_json_numbers(kernel_results)
     sources = {"acoustic_cell_update": ("mpas_tpu_torch/csrc/acoustic.cu",

@@ -1,4 +1,7 @@
-"""PyTorch/CUDA port of the mpas_tpu dry nonhydrostatic atmosphere slice.
+"""PyTorch/CUDA port of mpas_tpu: so far the nonhydrostatic atmosphere
+(the dry JW slice, also on a variable-resolution mesh, and the moist
+supercell with Kessler microphysics), the shallow-water core and the
+ocean's forward model (split-explicit and RK4).
 
 Module paths and function names mirror `mpas_tpu` so each function's
 reference twin is easy to find (`mpas_tpu_torch/cores/atmosphere/nhyd.py`

@@ -1,11 +1,12 @@
 """Carry a state across from the reference package.
 
-The input is the reference's `AtmGrid`/`AtmState`/`AtmDiag`/`AtmCarry`
-or `SWState` flattened to nested dicts of numpy arrays plus their static
-ints and floats (nCells, nz, cf1..3, adv_beta, sphere_radius, ...): the
-same field names, no JAX types. Fields the port does not carry (the
-indexed advection stencil) are ignored. Arrays become CPU tensors of the
-same float dtype; index arrays become int64.
+The input is the reference's `AtmGrid`/`AtmState`/`AtmDiag`/`AtmCarry`,
+`SWState` or `OcnGrid`/`OcnState`/`OcnSurfaceForcing` flattened to
+nested dicts of numpy arrays plus their static ints and floats (nCells,
+nz, cf1..3, adv_beta, sphere_radius, ...): the same field names, no JAX
+types. Fields the port does not carry (the indexed advection stencil)
+are ignored. Arrays become CPU tensors of the same float dtype; index
+arrays become int64; fields that are None stay None.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import torch
 from mpas_tpu_torch.cores.atmosphere.setup import AtmGrid, VerticalGrid
 from mpas_tpu_torch.cores.atmosphere.state import AtmDiag, AtmState
 from mpas_tpu_torch.cores.atmosphere.time_integration import AtmCarry
+from mpas_tpu_torch.cores.ocean.forcing import OcnSurfaceForcing
+from mpas_tpu_torch.cores.ocean.state import OcnGrid, OcnState
 from mpas_tpu_torch.cores.sw.state import SWState
 from mpas_tpu_torch.mesh.mesh import Mesh
 
@@ -64,6 +67,18 @@ def carry_from_arrays(d) -> AtmCarry:
 
 def sw_state_from_arrays(d) -> SWState:
     return _build(SWState, d)
+
+
+def ocn_grid_from_arrays(d) -> OcnGrid:
+    return _build(OcnGrid, d, mesh=mesh_from_arrays(d["mesh"]))
+
+
+def ocn_state_from_arrays(d) -> OcnState:
+    return _build(OcnState, d)
+
+
+def ocn_forcing_from_arrays(d) -> OcnSurfaceForcing:
+    return _build(OcnSurfaceForcing, d)
 
 
 def to_arrays(obj):

@@ -7,7 +7,8 @@ no JAX, so this file imports none and runs without the suite's conftest:
 
 Shapes are those of the paths (jw_120km: 40,962 cells x 26 levels;
 supercell_2km: 9,216 cells x 40 levels; jw_var60_15: 23,000 cells x 26
-levels at maxEdges 8; sw_tc5_120km: 40,962 cells at K = 1 and 2).
+levels at maxEdges 8; sw_tc5_120km: 40,962 cells at K = 1 and 2;
+ocean_channel_10km: 6,336 cells at K = 1, 20 and 40).
 Beyond those, the tiled kernels' edge cases: column and cell counts that
 no tile size divides, level counts from 2 to 500 (where K1's tile
 shrinks), and operands that start one element into their storage.
@@ -38,7 +39,8 @@ K2_SHAPES = [(nc, P, mE, K) for nc, nz, mE in ((40962, 26, 6),
                                                (9216, 40, 6),
                                                (23000, 26, 8))
              for P, K in ((mE, nz), (mE, 2 * nz), (3, nz))] \
-    + [(40962, 6, 6, 1), (40962, 6, 6, 2)]
+    + [(40962, 6, 6, 1), (40962, 6, 6, 2)] \
+    + [(6336, 6, 6, K) for K in (1, 20, 40)]
 
 
 @pytest.fixture
@@ -241,3 +243,30 @@ def test_one_dimensional_trisk_goes_through_k2(cuda_device, op):
     assert kernels.launch_counts["tinydot"] == 1
     assert got.shape == want.shape == (mesh.nEdges,)
     assert_close([got.cpu()], [want], 1e-12)
+
+
+@pytest.mark.cuda
+def test_ocean_split_step_launches_k2_as_the_config_implies(cuda_device):
+    """One split_step of the small baroclinic channel on the card launches
+    K2 exactly as often as its config implies (245 times: 240 in the
+    barotropic subcycles), no K1, and agrees with the CPU's plain path at
+    1e-9 x max|CPU| (chip_smoke.py's bound for the card-vs-CPU runs)."""
+    from mpas_tpu_torch.cores.ocean.core import (
+        OcnConfig, split_step, tinydot_launches_per_split_step)
+    from mpas_tpu_torch.cores.ocean.init_channel import (
+        init_baroclinic_channel)
+    from mpas_tpu_torch.mesh.planar import channel_hex_mesh
+
+    grid, state = init_baroclinic_channel(channel_hex_mesh(8, 26, 10000.0),
+                                          nz=10)
+    cfg = OcnConfig(config_dt=300.0)
+    want = split_step(grid, cfg, state, cfg.config_dt)
+    kernels.reset_launch_counts()
+    got = split_step(grid.to(cuda_device, torch.float64), cfg,
+                     state.to(cuda_device, torch.float64), cfg.config_dt)
+    assert kernels.launch_counts == {
+        "acoustic_cell_update": 0,
+        "tinydot": tinydot_launches_per_split_step(cfg)}
+    assert tinydot_launches_per_split_step(cfg) == 245
+    for k in ("u", "layerThickness", "tracers", "ubtr"):
+        assert_close([getattr(got, k).cpu()], [getattr(want, k)], 1e-9)

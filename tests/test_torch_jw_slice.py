@@ -122,6 +122,11 @@ import mpas_tpu_torch.mesh.varres
 import mpas_tpu_torch.cores.sw.time_integration
 import mpas_tpu_torch.cores.sw.test_cases
 import mpas_tpu_torch.cores.sw.global_diagnostics
+import mpas_tpu_torch.cores.ocean.core
+import mpas_tpu_torch.cores.ocean.init_channel
+import mpas_tpu_torch.cores.ocean.vmix
+import mpas_tpu_torch.cores.ocean.kpp
+import mpas_tpu_torch.ops.matrix
 import mpas_tpu_torch.convert
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCK]
 sys.exit(1 if bad else 0)

@@ -15,11 +15,11 @@ from mpas_tpu_torch import kernels
 from mpas_tpu_torch.kernels import acoustic, tinydot
 
 # (P, I, K) of every path's contractions: jw_120km, supercell_2km,
-# jw_var60_15 (TRiSK at nz and 2*nz, second derivatives at nz), and the
-# shallow-water TRiSK pair
+# jw_var60_15 (TRiSK at nz and 2*nz, second derivatives at nz), the
+# shallow-water TRiSK pair, and the ocean channel's K = 1, 20 and 40
 K2_PATH_SHAPES = [(6, 6, 26), (6, 6, 52), (3, 6, 26), (6, 6, 40), (6, 6, 80),
                   (3, 6, 40), (8, 8, 26), (8, 8, 52), (3, 8, 26), (6, 6, 1),
-                  (6, 6, 2)]
+                  (6, 6, 2), (6, 6, 20)]
 
 
 @pytest.mark.parametrize("nz,values", [(26, 586), (55, 1224)])
