@@ -27,7 +27,7 @@ seconds):
    the same way, the wrapper's host us per call, and the plain version's
    host-inclusive time, which is no yardstick;
 4. small float64 trajectories on the card against the same runs on the
-   CPU: JW (642 cells, 10 levels, 24 steps; worst err/tol against
+   CPU (phase 4b: the same in shards, phase 4c: over NCCL): JW (642 cells, 10 levels, 24 steps; worst err/tol against
    tests/golden/jw_case2.npz printed only), shallow-water TC5 (642
    cells, 48 steps; against tests/golden/sw_tc5.npz printed only), JW on
    a 1,200-cell variable-resolution mesh (10 levels, 3 steps, mesh
@@ -35,6 +35,13 @@ seconds):
    (144 cells, 16 levels, seeded cloud and rain, 6 steps with Kessler
    microphysics), and the ocean's baroclinic channel (192 cells, 10
    levels: 3 split-explicit steps of 300 s and 4 RK4 steps of 30 s);
+   4b. small float64 sharded runs on the card, all shards in one process
+   (loopback), held to the same runs unsharded on the card at 1e-11 x
+   max: JW (642 cells, 10 levels, 3 steps) on 2 and 4 shards, the ocean
+   channel (192 cells, 3 split steps) and shallow-water TC5 (642 cells, 5
+   steps) on 4;
+   4c. the process-group transport on NCCL, 2 ranks on 2 cards, the small
+   JW held to loopback at 1e-11, where the machine has two cards;
 5. the full-size paths in float32 (setup, then timed steps), each with
    finite fields, conserved mass and launch counts that prove every step
    went through its kernels:
@@ -52,15 +59,26 @@ seconds):
    - ocean_channel_10km: the ocean's baroclinic channel on the 6,336-cell
      10-km channel mesh, 20 levels, split-explicit at dt = 300 s (245 K2
      launches per step, from the config: 240 in the barotropic subcycles,
-     no K1), conserving volume and heat, salinity uniform, walls closed.
+     no K1), conserving volume and heat, salinity uniform, walls closed;
+   5b. jw_120km_4way: jw_120km sharded 4 ways by sfc_partition (halo
+     depth 4), float32, loopback on the card from jw_120km's start: the
+     layout's host seconds, flat sizes and halo volume per depth, 12 K1 +
+     15 K2 launches a step, dry mass over owned cells, and the gathered
+     u, w, theta_m, rho_zz within the reference's f32 allowance, 2e-4 on
+     max |a - b| / (1 + |b|), of jw_120km's after the same 11 steps; then
+     then jw_120km and jw_120km_4way timed in turns (A, B, B, A, 5 steps
+     each); phase 3 at its flat K1/K2 shapes;
+   5c. ocean_channel_10km_4way: the same for the ocean channel (245 K2 a
+     step, volume and heat over owned cells, u, h and tracers, the turns
+     against ocean_channel_10km).
 
 The second-to-last line is a JSON object with each kernel's numbers at
-its jw_120km float32 shape (launches summed over the five paths), the
+its jw_120km float32 shape (launches summed over the seven paths), the
 last one {"ok": true, "device": {...}}. Without CUDA it fails before any
 result is printed.
 
 --profile DIR adds torch.profiler breakdowns of 3 steps of each of the
-five paths.
+seven paths.
 """
 
 from __future__ import annotations
@@ -220,7 +238,7 @@ def cuda_time_ms(fn, reps=20):
     return start.elapsed_time(stop) / reps
 
 
-def check_kernels(device):
+def check_kernels(device, k1_shapes=K1_SHAPES, k2_shapes=K2_SHAPES):
     """Phase 3: each kernel against its plain version at every path's
     shapes, and timed on the device. Returns {(kernel, path, dtype,
     shape): numbers}."""
@@ -233,7 +251,7 @@ def check_kernels(device):
           "ms per launch")
     results = {}
     rng = np.random.default_rng(0)
-    for path, nc, nz in K1_SHAPES:
+    for path, nc, nz in k1_shapes:
         for dtype in (torch.float64, torch.float32):
             args = {k: torch.from_numpy(v).to(device, dtype)
                     for k, v in acoustic.example_args(nc, nz).items()}
@@ -265,7 +283,7 @@ def check_kernels(device):
     # the paths' contractions (ops/stencils.py and advection.py): TRiSK
     # at K = nz and 2*nz (1 and 2 on the shallow-water path), the second
     # derivatives at K = nz; padded slots carry zero weight
-    for path, nc, shapes in K2_SHAPES:
+    for path, nc, shapes in k2_shapes:
         for P, I, K in shapes:
             for dtype in (torch.float64, torch.float32):
                 w = np.where(rng.uniform(size=(nc, 1, I)) < 0.3, 0.0,
@@ -493,7 +511,8 @@ def run_path(name, device, card, setup):
     from mpas_tpu_torch.cores.atmosphere.time_integration import (
         init_carry, srk3_step)
     t0 = time.perf_counter()
-    cfg, grid, state, diag = setup()
+    host = setup()
+    cfg, grid, state, diag = host
     host_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     grid = grid.to(device, torch.float32)
@@ -546,13 +565,13 @@ def run_path(name, device, card, setup):
           f"{drift[0]:.3e}; launches {counts} "
           f"(per step: K1 {K1_PER_STEP}, K2 {k2})")
     require(drift[0] <= 1e-5, f"dry mass not conserved: {drift[0]:.3e}")
-    return cfg, grid, carry, counts, drift, sed
+    return cfg, grid, carry, counts, drift, sed, host
 
 
 def run_supercell_path(device, card):
     """Phase 5, supercell_2km (bench.py:104-119) in float32, from the
     seeded moist start: the timed steps carry cloud and rain."""
-    cfg, grid, carry, counts, drift, sed = run_path(
+    cfg, grid, carry, counts, drift, sed, _ = run_path(
         "supercell_2km", device, card, lambda: supercell_setup(96, 40))
     require((grid.mesh.nCells, grid.vert.nz) == (9216, 40),
             "supercell_2km built the wrong size")
@@ -650,7 +669,7 @@ def run_var_path(device, card):
     variable_res_mesh(23000, iterations=30), 26 levels, dt = 90 s,
     config_len_disp = 15 km, a quarter of the Earth's radius, mesh-scaled
     dissipation, in float32."""
-    cfg, grid, carry, counts, _, _ = run_path(
+    cfg, grid, carry, counts, _, _, _ = run_path(
         "jw_var60_15", device, card,
         lambda: jw_var_setup(23000, 30, 26, 90.0, 15000.0))
     mesh = grid.mesh
@@ -724,7 +743,8 @@ def run_ocean_path(device, card):
         run_steps, tinydot_launches_per_split_step)
     name = "ocean_channel_10km"
     t0 = time.perf_counter()
-    cfg, grid, state = ocean_setup(32, 200, OCEAN_NZ, 300.0)
+    host = ocean_setup(32, 200, OCEAN_NZ, 300.0)
+    cfg, grid, state = host
     host_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     f32 = torch.float32
@@ -784,7 +804,340 @@ def run_ocean_path(device, card):
     require(heat_drift <= 1e-5, f"heat not conserved: {heat_drift:.3e}")
     require(s_err <= s_tol, f"salinity left 35: {s_err:.3e}")
     require(u_wall == 0.0, f"flow through the walls: {u_wall:g}")
-    return cfg, grid, state, counts
+    return cfg, grid, state, counts, host
+
+
+# --- sharded runs (mpas_tpu_torch.parallel, the three distributed.py) ---
+
+N_SHARDS = 4
+SHARD_REL_F64 = 1e-11   # sharded against unsharded, float64
+# the reference's f32 allowance, on its measure max |a - b| / (1 + |b|)
+# (__graft_entry__.py:128-133): a max-relative bound would hold the small
+# w of these runs to ~1e-7 m/s, below what one f32 rounding of the start
+# moves it in 11 steps
+SHARD_REL_F32 = 2e-4
+ATM_FIELDS = (("u", "edge"), ("w", "cell"), ("theta_m", "cell"),
+              ("rho_zz", "cell"))
+OCN_FIELDS = (("u", "edge"), ("layerThickness", "cell"), ("tracers", "cell"))
+
+
+def gathered(smesh, group, fields, obj, mesh):
+    """{name: global numpy field} from the owned slots of a sharded run."""
+    from mpas_tpu_torch.parallel.runner import gather_field
+    return {k: gather_field(smesh, group.stack(getattr(obj, k)), kind,
+                            mesh.nCells if kind == "cell" else mesh.nEdges)
+            for k, kind in fields}
+
+
+def compare_sharded(label, got, ref, rel, mixed=False):
+    """Hold each gathered field to the unsharded one: at rel x max|ref|,
+    or (mixed) at max |got - ref| / (1 + |ref|) <= rel, the reference's
+    f32 measure."""
+    for k, r in ref.items():
+        scale = float(np.abs(r).max())
+        diff = np.abs(got[k] - r)
+        err = float(diff.max())
+        err_mixed = float((diff / (1.0 + np.abs(r))).max())
+        print(f"  {label} {k}: sharded vs unsharded max abs err {err:.3e} "
+              f"= {err / scale:.3e} x max|ref|, max err/(1+|ref|) "
+              f"{err_mixed:.3e} (bound {rel:g} "
+              f"{'on err/(1+|ref|)' if mixed else 'x max|ref|'})")
+        require(np.isfinite(got[k]).all(), f"{label} {k} not finite")
+        require((err_mixed if mixed else err / scale) <= rel,
+                f"{label} {k}: the sharded run departs from the unsharded "
+                "one")
+
+
+def shard_atm(grid, carry0, n_parts, device, dtype):
+    """(satm, group, grid_l, carry_l): the global host grid and carry0
+    (any device) sharded by sfc_partition and placed in loopback."""
+    from mpas_tpu_torch.cores.atmosphere import distributed as adist
+    from mpas_tpu_torch.parallel.partition import sfc_partition
+    from mpas_tpu_torch.parallel.runner import device_mesh, place
+    satm = adist.shard_atm_grid(grid, sfc_partition(grid.mesh, n_parts))
+    group = device_mesh(n_parts, device)
+    carry_st = adist.shard_atm_carry(satm, carry0.to(torch.device("cpu"),
+                                                     dtype))
+    return satm, group, satm.local(group, dtype), place(carry_st, group,
+                                                        dtype)
+
+
+def check_small_sharded(device, mesh8):
+    """Phase 4b: small float64 sharded runs on the card in loopback, held
+    to the same runs unsharded on the card at SHARD_REL_F64 x max: JW
+    (642 cells, 10 levels, 3 steps of 1,800 s) at P = 2 and 4; the ocean
+    channel (192 cells, 10 levels, 3 split steps of 300 s) at P = 4;
+    shallow-water TC5 (642 cells, 5 steps) at P = 4."""
+    from mpas_tpu_torch.cores.atmosphere import distributed as adist
+    from mpas_tpu_torch.cores.atmosphere.time_integration import (
+        init_carry, run_steps)
+    from mpas_tpu_torch.cores.ocean import distributed as odist
+    from mpas_tpu_torch.cores.ocean.core import run_steps as ocn_run_steps
+    from mpas_tpu_torch.cores.sw import distributed as sdist
+    from mpas_tpu_torch.cores.sw import test_cases
+    from mpas_tpu_torch.cores.sw.config import SWConfig
+    from mpas_tpu_torch.cores.sw.state import SWState
+    from mpas_tpu_torch.cores.sw.time_integration import (
+        run_steps as sw_run_steps)
+    from mpas_tpu_torch.parallel.layout import build_sharded_mesh
+    from mpas_tpu_torch.parallel.partition import sfc_partition
+    from mpas_tpu_torch.parallel.runner import (device_mesh, place,
+                                                scatter_field)
+    f64 = torch.float64
+    cfg, grid, state, diag = jw_setup(mesh8, 10, 1800.0, 960000.0)
+    g = grid.to(device, f64)
+    carry0 = init_carry(g, cfg, state.to(device, f64), diag.to(device, f64),
+                        cfg.config_dt)
+    ref = run_steps(g, cfg, carry0, cfg.config_dt, 3)
+    ref = {k: getattr(ref.state, k).cpu().numpy() for k, _ in ATM_FIELDS}
+    for n_parts in (2, 4):
+        satm, group, grid_l, carry_l = shard_atm(grid, carry0, n_parts,
+                                                 device, f64)
+        out = adist.make_run_steps_atm(satm, cfg, group)(grid_l, carry_l, 3)
+        compare_sharded(f"JW P={n_parts}", gathered(
+            satm.smesh, group, ATM_FIELDS, out.state, grid.mesh), ref,
+            SHARD_REL_F64)
+
+    ocfg, ogrid, ostate = ocean_setup(8, 26, 10, 300.0)
+    ref = ocn_run_steps(ogrid.to(device, f64), ocfg, ostate.to(device, f64),
+                        3)
+    ref = {k: getattr(ref, k).cpu().numpy() for k, _ in OCN_FIELDS}
+    socn = odist.shard_ocn_grid(ogrid, sfc_partition(ogrid.mesh, N_SHARDS))
+    group = device_mesh(N_SHARDS, device)
+    out = odist.make_run_steps_ocn(socn, ocfg, group)(
+        socn.local(group, f64),
+        place(odist.shard_ocn_state(socn, ostate), group, f64), 3)
+    compare_sharded(f"ocean split P={N_SHARDS}", gathered(
+        socn.smesh, group, OCN_FIELDS, out, ogrid.mesh), ref, SHARD_REL_F64)
+
+    mesh, st, h_s = test_cases.test_case_5(mesh8)
+    scfg = SWConfig(config_dt=900.0, config_test_case=5)
+    ref = sw_run_steps(mesh.to(device, f64), scfg, st.to(device, f64),
+                       h_s.to(device, f64), 5)
+    fields = (("u", "edge"), ("h", "cell"), ("tracers", "cell"))
+    ref = {k: getattr(ref, k).cpu().numpy() for k, _ in fields}
+    sm = build_sharded_mesh(mesh, sfc_partition(mesh, N_SHARDS),
+                            halo_depth=sdist.SW_HALO_DEPTH)
+    st_st = SWState(**{k: scatter_field(sm, getattr(st, k), kind)
+                       for k, kind in fields})
+    out = sdist.make_run_steps(sm, scfg, group)(
+        sm.local(group, f64), place(st_st, group, f64),
+        group.local(scatter_field(sm, h_s, "cell"), f64), 5)
+    compare_sharded(f"sw_tc5 P={N_SHARDS}",
+                    gathered(sm, group, fields, out, mesh), ref,
+                    SHARD_REL_F64)
+
+
+def check_nccl_exchange(device, mesh8):
+    """Phase 4c: the process-group transport on NCCL, 2 ranks on 2 cards,
+    the small JW of phase 4b held to loopback at SHARD_REL_F64; only
+    where the machine has two cards (NCCL refuses two ranks on one)."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"process-group exchange on NCCL: not run "
+              f"(device_count={n_cards})")
+        return
+    from mpas_tpu_torch.cores.atmosphere import distributed as adist
+    from mpas_tpu_torch.cores.atmosphere.time_integration import init_carry
+    from mpas_tpu_torch.parallel.partition import sfc_partition
+    from mpas_tpu_torch.parallel.runner import device_mesh, spawn_ranks
+    f64 = torch.float64
+    cfg, grid, state, diag = jw_setup(mesh8, 10, 1800.0, 960000.0)
+    carry0 = init_carry(grid, cfg, state, diag, cfg.config_dt)
+    satm = adist.shard_atm_grid(grid, sfc_partition(grid.mesh, 2))
+    carry_st = adist.shard_atm_carry(satm, carry0)
+    loop = adist.run_on_rank(device_mesh(2, device), satm, cfg, carry_st, 3,
+                             f64)
+    store = Path(__file__).resolve().parent / "build" / "chip_smoke" / \
+        "nccl_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    ranks = spawn_ranks(adist.run_on_rank, 2, store,
+                        args=(satm, cfg, carry_st, 3, f64),
+                        devices=["cuda:0", "cuda:1"])
+    for k, _ in ATM_FIELDS:
+        err = max(float(np.abs(r[k] - loop[k]).max()) for r in ranks) \
+            / float(np.abs(loop[k]).max())
+        print(f"  NCCL 2 ranks vs loopback {k}: {err:.3e} x max")
+        require(err <= SHARD_REL_F64, f"NCCL run departs from loopback: {k}")
+    for r in ranks:
+        require(abs(r["dry_mass"] - loop["dry_mass"])
+                <= SHARD_REL_F64 * loop["dry_mass"], "NCCL psum_owned")
+
+
+def in_turns(steppers, steps=5):
+    """ms/step of each of two steppers (name -> function advancing its own
+    run one step) timed in turns A, B, B, A of `steps` steps, after one
+    untimed step each: the host clock around torch.cuda.synchronize()."""
+    names = list(steppers)
+    for n in names:
+        steppers[n]()
+    torch.cuda.synchronize()
+    ms = {n: [] for n in names}
+    for n in names + names[::-1]:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            steppers[n]()
+        torch.cuda.synchronize()
+        ms[n].append(1e3 * (time.perf_counter() - t0) / steps)
+    print("in turns (A, B, B, A), ms/step: " + "; ".join(
+        f"{n} {' / '.join(f'{t:.2f}' for t in v)}" for n, v in ms.items()))
+
+
+def stepper(fn, state):
+    """A function that advances `state` by fn(state) at each call."""
+    box = [state]
+
+    def step():
+        box[0] = fn(box[0])
+    return step
+
+
+def layout_text(sm):
+    """The flat sizes and the neighbour schedules' volume per depth."""
+    P = sm.n_parts
+    vol = "; ".join(
+        f"depth {d}: {sm.cell_nx[d].volume:,} cells / "
+        f"{sm.edge_nx[d].volume:,} edges / {sm.vertex_nx[d].volume:,} "
+        f"vertices in {len(sm.cell_nx[d].perms)}/{len(sm.edge_nx[d].perms)}"
+        f"/{len(sm.vertex_nx[d].perms)} rounds" for d in sorted(sm.cell_nx))
+    return (f"{P} shards of {sm.mesh.nCells:,} cells / {sm.mesh.nEdges:,} "
+            f"edges / {sm.mesh.nVertices:,} vertices (padded): flat "
+            f"{P * sm.mesh.nCells:,} cells, {P * sm.mesh.nEdges:,} edges; "
+            f"owned cells per shard "
+            f"{(sm.owned_cell_mask > 0).sum(1).tolist()}; schedule volume "
+            f"{vol}")
+
+
+def step_sharded(name, device, run, carry_l, per_step, mass_fn):
+    """One warm step and MAIN_STEPS timed steps of a sharded runner, the
+    launch counts read after every step (zeroed just before the warm
+    step); the owned mass before and after. Returns (carry, elapsed s,
+    counts, peak GB, drifts)."""
+    from mpas_tpu_torch import kernels
+    mass0 = mass_fn(carry_l)
+    kernels.reset_launch_counts()
+    seen = []
+    carry_l = run(carry_l)                                   # warm step
+    seen.append(dict(kernels.launch_counts))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    for _ in range(MAIN_STEPS):
+        carry_l = run(carry_l)
+        seen.append(dict(kernels.launch_counts))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    zero = {k: 0 for k in kernels.launch_counts}
+    for kname, n in per_step.items():
+        got = [b[kname] - a[kname] for a, b in zip([zero] + seen, seen)]
+        require(got == [n] * (MAIN_STEPS + 1),
+                f"{name}: {kname} launches per step {got}, expected {n}")
+    mass1 = mass_fn(carry_l)
+    drift = [abs(b - a) / abs(a) for a, b in zip(mass0, mass1)]
+    return carry_l, elapsed, seen[-1], peak_gb, drift
+
+
+def run_sharded_jw_path(device, card, host, ref, profile=None):
+    """Phase 5b, jw_120km_4way: jw_120km's grid sharded 4 ways by
+    sfc_partition at halo depth 4, float32, loopback on the card, from the
+    same start as jw_120km (init_carry on the card); 12 K1 and 15 K2
+    launches a step; dry mass over owned cells; after the 11 steps the
+    gathered fields against jw_120km's (`ref`) at SHARD_REL_F32 on the
+    reference's measure."""
+    from mpas_tpu_torch.cores.atmosphere import distributed as adist
+    from mpas_tpu_torch.cores.atmosphere.time_integration import init_carry
+    name, f32 = "jw_120km_4way", torch.float32
+    cfg, grid, state, diag = host
+    g32 = grid.to(device, f32)
+    carry0 = init_carry(g32, cfg, state.to(device, f32),
+                        diag.to(device, f32), cfg.config_dt)
+    del g32
+    t0 = time.perf_counter()
+    satm, group, grid_l, carry_l = shard_atm(grid, carry0, N_SHARDS, device,
+                                             f32)
+    torch.cuda.synchronize()
+    layout_s = time.perf_counter() - t0
+    sm = satm.smesh
+    print(f"{name} layout, grid and carry sharded and placed in "
+          f"{layout_s:.2f} s: {layout_text(sm)}")
+    require(sm.mesh.nCells * N_SHARDS == grid_l.mesh.nCells, "flat layout")
+    mask = group.local(sm.owned_cell_mask, f32)
+    run1 = adist.make_run_steps_atm(satm, cfg, group)
+    carry_l, elapsed, counts, peak_gb, drift = step_sharded(
+        name, device, lambda c: run1(grid_l, c, 1), carry_l,
+        {"acoustic_cell_update": K1_PER_STEP,
+         "tinydot": K2_PER_STEP["jw_120km"]},
+        lambda c: (adist.dry_mass(grid_l, c, mask, group),))
+    for k in STATE_FIELDS:
+        require(bool(torch.isfinite(getattr(carry_l.state, k)).all()), k)
+    nc = grid.mesh.nCells
+    print(f"{name} float32 on {card}: {MAIN_STEPS} steps in {elapsed:.3f} s "
+          f"= {1e3 * elapsed / MAIN_STEPS:.2f} ms/step, "
+          f"{nc * MAIN_STEPS / elapsed:.1f} owned cell-column updates/s "
+          f"(over {nc} cells); peak device memory {peak_gb:.2f} GB; dry-mass "
+          f"drift over owned cells {drift[0]:.3e}; launches {counts}")
+    require(drift[0] <= 1e-5, f"{name}: dry mass not conserved")
+    compare_sharded(name, gathered(sm, group, ATM_FIELDS, carry_l.state,
+                                   grid.mesh), ref, SHARD_REL_F32, mixed=True)
+    step = stepper(lambda c: run1(grid_l, c, 1), carry_l)
+    if profile:
+        from mpas_tpu_torch.cores.atmosphere import time_integration as ti
+        profile_steps(name, step, profile, ti, PROFILE_REGIONS)
+    return counts, grid_l.mesh.nCells, step
+
+
+def run_sharded_ocean_path(device, card, host, ref, profile=None):
+    """Phase 5c, ocean_channel_10km_4way: the channel sharded 4 ways,
+    float32, loopback on the card, split-explicit; 245 K2 and no K1 a
+    step; volume and heat over owned cells; after the 11 steps the
+    gathered fields against ocean_channel_10km's at SHARD_REL_F32 on the
+    reference's measure."""
+    from mpas_tpu_torch.cores.ocean import distributed as odist
+    from mpas_tpu_torch.cores.ocean.core import (
+        tinydot_launches_per_split_step)
+    from mpas_tpu_torch.parallel.partition import sfc_partition
+    from mpas_tpu_torch.parallel.runner import device_mesh, place
+    name, f32 = "ocean_channel_10km_4way", torch.float32
+    cfg, grid, state = host
+    t0 = time.perf_counter()
+    socn = odist.shard_ocn_grid(grid, sfc_partition(grid.mesh, N_SHARDS))
+    group = device_mesh(N_SHARDS, device)
+    grid_l = socn.local(group, f32)
+    state_l = place(odist.shard_ocn_state(socn, state.to(
+        torch.device("cpu"), f32)), group, f32)
+    torch.cuda.synchronize()
+    layout_s = time.perf_counter() - t0
+    sm = socn.smesh
+    print(f"{name} layout, grid and state sharded and placed in "
+          f"{layout_s:.2f} s: {layout_text(sm)}")
+    mask = group.local(sm.owned_cell_mask, f32)
+    run1 = odist.make_run_steps_ocn(socn, cfg, group)
+    state_l, elapsed, counts, peak_gb, drift = step_sharded(
+        name, device, lambda s: run1(grid_l, s, 1), state_l,
+        {"acoustic_cell_update": 0,
+         "tinydot": tinydot_launches_per_split_step(cfg)},
+        lambda s: odist.volume_heat(grid_l, s, mask, group))
+    for k in ("u", "layerThickness", "tracers", "ubtr"):
+        require(bool(torch.isfinite(getattr(state_l, k)).all()), k)
+    nc = grid.mesh.nCells
+    print(f"{name} float32 on {card}: {MAIN_STEPS} steps in {elapsed:.3f} s "
+          f"= {1e3 * elapsed / MAIN_STEPS:.2f} ms/step, "
+          f"{nc * MAIN_STEPS / elapsed:.1f} owned cell-column updates/s "
+          f"(over {nc} cells); peak device memory {peak_gb:.2f} GB; volume "
+          f"drift over owned cells {drift[0]:.3e}, heat {drift[1]:.3e}; "
+          f"launches {counts}")
+    require(drift[0] <= 1e-5 and drift[1] <= 1e-5,
+            f"{name}: volume or heat not conserved")
+    compare_sharded(name, gathered(sm, group, OCN_FIELDS, state_l,
+                                   grid.mesh), ref, SHARD_REL_F32, mixed=True)
+    step = stepper(lambda s: run1(grid_l, s, 1), state_l)
+    if profile:
+        from mpas_tpu_torch.cores.ocean import core as ocean_core
+        profile_steps(name, step, profile, ocean_core,
+                      ("split_step", "implicit_vertical_mix"))
+    return counts, grid_l.mesh.nCells, step
 
 
 PROFILE_REGIONS = ("compute_dyn_tend", "acoustic_step", "solve_diagnostics",
@@ -881,8 +1234,9 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
                         help="also profile 3 steps of jw_120km, "
-                             "sw_tc5_120km, supercell_2km, jw_var60_15 and "
-                             "ocean_channel_10km; the kernel tables go to "
+                             "sw_tc5_120km, supercell_2km, jw_var60_15, "
+                             "ocean_channel_10km and the two 4-way paths; "
+                             "the kernel tables go to "
                              "DIR/profile_<path>.txt")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -911,19 +1265,33 @@ def main():
     timed("small f64 varres JW", check_small_varres, device)
     timed("small f64 supercell", check_small_supercell, device)
     timed("small f64 ocean", check_small_ocean, device)
+    timed("small f64 sharded, loopback", check_small_sharded, device, mesh8)
+    timed("process group on NCCL", check_nccl_exchange, device, mesh8)
 
     # one 40,962-cell mesh for jw_120km and sw_tc5_120km: each init
     # scales its own copy
     mesh64 = timed("icosahedral_mesh(64, 4)", icosahedral_mesh, 64, 4)
     counts = {}
-    cfg, grid, carry, counts["jw_120km"] = timed(
-        "jw_120km", run_path, "jw_120km", device, card,
-        lambda: jw_setup(mesh64, 26, 720.0, 120000.0))[:4]
+    jw = timed("jw_120km", run_path, "jw_120km", device, card,
+               lambda: jw_setup(mesh64, 26, 720.0, 120000.0))
+    cfg, grid, carry, counts["jw_120km"] = jw[:4]
     require((grid.mesh.nCells, grid.vert.nz) == (40962, 26),
             "jw_120km built the wrong size")
     if args.profile:
         profile_srk3("jw_120km", cfg, grid, carry, args.profile)
-    del grid, carry
+    jw_ref = {k: getattr(carry.state, k).cpu().numpy() for k, _ in ATM_FIELDS}
+    counts["jw_120km_4way"], flat_nc, jw4_step = timed(
+        "jw_120km_4way", run_sharded_jw_path, device, card, jw[6], jw_ref,
+        args.profile)
+    from mpas_tpu_torch.cores.atmosphere.time_integration import srk3_step
+    in_turns({"jw_120km": stepper(lambda c: srk3_step(grid, cfg, c,
+                                                      cfg.config_dt), carry),
+              "jw_120km_4way": jw4_step})
+    del jw, jw_ref, grid, carry, jw4_step
+    kernel_results.update(timed(
+        "kernel parity and device time at jw_120km_4way's flat shapes",
+        check_kernels, device, (("jw_120km_4way", flat_nc, 26),),
+        (("jw_120km_4way", flat_nc, ((6, 6, 26), (6, 6, 52), (3, 6, 26))),)))
     sw = timed("sw_tc5_120km", run_sw_path, device, card, mesh64)
     counts["sw_tc5_120km"] = sw[-1]
     if args.profile:
@@ -946,7 +1314,7 @@ def main():
     if args.profile:
         profile_srk3("jw_var60_15", cfg, grid, carry, args.profile)
     del grid, carry
-    cfg, grid, state, counts["ocean_channel_10km"] = timed(
+    cfg, grid, state, counts["ocean_channel_10km"], ocean_host = timed(
         "ocean_channel_10km", run_ocean_path, device, card)
     if args.profile:
         from mpas_tpu_torch.cores.ocean import core as ocean_core
@@ -957,7 +1325,20 @@ def main():
                                              cfg.config_dt)
         profile_steps("ocean_channel_10km", ocean_step, args.profile,
                       ocean_core, ("split_step", "implicit_vertical_mix"))
-    del grid, state
+    ocean_ref = {k: getattr(state, k).cpu().numpy() for k, _ in OCN_FIELDS}
+    counts["ocean_channel_10km_4way"], flat_nc, ocean4_step = timed(
+        "ocean_channel_10km_4way", run_sharded_ocean_path, device, card,
+        ocean_host, ocean_ref, args.profile)
+    from mpas_tpu_torch.cores.ocean.core import ocn_timestep
+    in_turns({"ocean_channel_10km": stepper(
+        lambda s: ocn_timestep(grid, cfg, s, cfg.config_dt), state),
+        "ocean_channel_10km_4way": ocean4_step})
+    del grid, state, ocean4_step
+    kernel_results.update(timed(
+        "kernel parity and device time at ocean_channel_10km_4way's flat "
+        "shapes", check_kernels, device, (),
+        (("ocean_channel_10km_4way", flat_nc, ((6, 6, 1), (6, 6, 20),
+                                               (6, 6, 40))),)))
 
     numbers = kernel_json_numbers(kernel_results)
     sources = {"acoustic_cell_update": ("mpas_tpu_torch/csrc/acoustic.cu",

@@ -1,10 +1,10 @@
 """Carry a state across from the reference package.
 
 The input is the reference's `AtmGrid`/`AtmState`/`AtmDiag`/`AtmCarry`,
-`SWState` or `OcnGrid`/`OcnState`/`OcnSurfaceForcing` flattened to
-nested dicts of numpy arrays plus their static ints and floats (nCells,
-nz, cf1..3, adv_beta, sphere_radius, ...): the same field names, no JAX
-types. Fields the port does not carry (the indexed advection stencil)
+`SWState`, `OcnGrid`/`OcnState`/`OcnSurfaceForcing` or `ShardedMesh`
+flattened to nested dicts of numpy arrays plus their static ints and
+floats (nCells, nz, cf1..3, adv_beta, sphere_radius, ...): the same field
+names, no JAX types. Fields the port does not carry (the indexed advection stencil)
 are ignored. Arrays become CPU tensors of the same float dtype; index
 arrays become int64; fields that are None stay None.
 """
@@ -23,6 +23,8 @@ from mpas_tpu_torch.cores.ocean.forcing import OcnSurfaceForcing
 from mpas_tpu_torch.cores.ocean.state import OcnGrid, OcnState
 from mpas_tpu_torch.cores.sw.state import SWState
 from mpas_tpu_torch.mesh.mesh import Mesh
+from mpas_tpu_torch.parallel.layout import (HaloExchange, NeighborExchange,
+                                            ShardedMesh)
 
 
 def _tensor(v):
@@ -79,6 +81,31 @@ def ocn_state_from_arrays(d) -> OcnState:
 
 def ocn_forcing_from_arrays(d) -> OcnSurfaceForcing:
     return _build(OcnSurfaceForcing, d)
+
+
+def sharded_mesh_from_arrays(d) -> ShardedMesh:
+    """A reference ShardedMesh: its stacked mesh becomes a Mesh of CPU
+    tensors; the schedules, masks and global ids stay numpy. The
+    neighbor schedules are {depth: dict of NeighborExchange fields}, with
+    send_idx a sequence of arrays and perms, sizes as the reference's."""
+    def nx_table(t):
+        return {int(depth): NeighborExchange(
+            send_idx=tuple(np.asarray(a) for a in nx["send_idx"]),
+            splice=np.asarray(nx["splice"]),
+            perms=tuple(tuple((int(q), int(p)) for q, p in rnd)
+                        for rnd in nx["perms"]),
+            sizes=tuple(int(s) for s in nx["sizes"]),
+            volume=int(nx["volume"])) for depth, nx in t.items()}
+
+    host = {k: np.asarray(d[k]) for k in (
+        "owned_cell_mask", "owned_edge_mask", "owned_vertex_mask",
+        "cell_global", "edge_global", "vertex_global")}
+    return _build(ShardedMesh, d, mesh=mesh_from_arrays(d["mesh"]), **host,
+                  cell_xch=HaloExchange(**d["cell_xch"]),
+                  edge_xch=HaloExchange(**d["edge_xch"]),
+                  cell_nx=nx_table(d["cell_nx"]),
+                  edge_nx=nx_table(d["edge_nx"]),
+                  vertex_nx=nx_table(d["vertex_nx"]))
 
 
 def to_arrays(obj):

@@ -534,7 +534,8 @@ def acoustic_step(grid: AtmGrid, cfg: AtmConfig, coefs: VertImpCoefs,
                   av: AcousticVars, dts,
                   theta_m, exner, w, rho_zz, rw, rw_save, ru, ru_save,
                   tend_ru, tend_rho, tend_rt, tend_rw, cqu=None,
-                  hoist: AcousticHoist | None = None, damp: bool = False):
+                  hoist: AcousticHoist | None = None, damp: bool = False,
+                  xch_rtheta=None):
     """One forward-backward acoustic substep (ref :2447-2723).
 
     With `av` zero at each RK stage the general branch reproduces the
@@ -543,7 +544,9 @@ def acoustic_step(grid: AtmGrid, cfg: AtmConfig, coefs: VertImpCoefs,
     entry; the last iteration's damping is applied by the caller. The
     cell-local column update runs in kernel K1 (kernels/acoustic.py).
     cqu enters only through the hoisted pressure-gradient coefficient, so
-    it is read only when `hoist` is not given."""
+    it is read only when `hoist` is not given. xch_rtheta: optional
+    halo-refresh callable fired on rtheta_pp the moment it is produced
+    (the sharded runner's layer-1 exchange, ref :845)."""
     mesh = grid.mesh
     vg = grid.vert
     nz = vg.nz
@@ -589,6 +592,8 @@ def acoustic_step(grid: AtmGrid, cfg: AtmConfig, coefs: VertImpCoefs,
         coefs.cofrz, rdzw, coefs.a_tri, coefs.alpha_tri,
         coefs.gamma_tri, grid.zz, F.pad(grid.dss, (0, 1)), rw_save - rw,
         zz_int * rho_int * w)
+    if xch_rtheta is not None:
+        rtheta_pp = xch_rtheta(rtheta_pp)
     return AcousticVars(ru_p=ru_p, rho_pp=rho_pp, rtheta_pp=rtheta_pp,
                         rtheta_pp_old=av.rtheta_pp, rw_p=rw_p,
                         ruAvg=ruAvg, wwAvg=wwAvg)

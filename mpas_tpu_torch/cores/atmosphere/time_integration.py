@@ -4,7 +4,10 @@ mpas_tpu/cores/atmosphere/time_integration.py).
 
 ref: atm_srk3, src/core_atmosphere/dynamics/mpas_atm_time_integration.F:142.
 The dynamics substeps, RK stages and acoustic substeps are plain Python
-loops; each tensor operation runs eagerly on the tensors' device.
+loops; each tensor operation runs eagerly on the tensors' device. The
+exchange hooks (`xch`) fire at the reference's halo-exchange points; on
+one shard they are the identity, and the sharded runner
+(cores/atmosphere/distributed.py) makes them halo refreshes.
 """
 
 from __future__ import annotations
@@ -70,7 +73,24 @@ def init_carry(grid: AtmGrid, cfg: AtmConfig, state: AtmState,
                     rainnc=torch.zeros_like(state.theta_m[:, 0]))
 
 
-def _check_supported(cfg: AtmConfig, state: AtmState, xch):
+class _NoExchange:
+    """Identity exchange hooks (single shard). The distributed runner
+    substitutes halo refreshes at exactly the reference's exchange points
+    (ref: the mpas_dmpar_exch_halo_field calls inside atm_srk3). `depth`
+    mirrors the reference's haloLayers argument (layer-restricted
+    exchanges, e.g. layer 1 only inside the acoustic loop, ref :792,845)."""
+
+    def cell(self, x, depth=None):
+        return x
+
+    def edge(self, x, depth=None):
+        return x
+
+
+NO_XCH = _NoExchange()
+
+
+def _check_supported(cfg: AtmConfig, state: AtmState):
     scheme = cfg.config_microp_scheme
     if scheme not in ("off", "mp_kessler", "mp_wsm6", "mp_thompson"):
         raise ValueError(
@@ -82,17 +102,25 @@ def _check_supported(cfg: AtmConfig, state: AtmState, xch):
     if scheme == "mp_kessler" and state.scalars.shape[-1] < 3:
         raise ValueError("mp_kessler requires scalars (qv, qc, qr); "
                          f"got {state.scalars.shape[-1]} scalar(s)")
-    if xch is not None:
-        raise NotImplementedError("exchange hooks (the distributed runner) "
-                                  "are not ported")
 
 
 def srk3_step(grid: AtmGrid, cfg: AtmConfig, carry: AtmCarry, dt,
               xch=None) -> AtmCarry:
-    """One full timestep (ref: atm_srk3 :142-1796)."""
-    state1 = carry.state
-    diag = carry.diag
-    _check_supported(cfg, state1, xch)
+    """One full timestep (ref: atm_srk3 :142-1796). xch: exchange hooks
+    (.cell/.edge with a depth), None on a single shard."""
+    xch = NO_XCH if xch is None else xch
+    _check_supported(cfg, carry.state)
+    # step-start halo refresh (ref: atm_srk3 :666-676 theta_m/scalars/
+    # pressure_p/rtheta_p exchanges)
+    state1 = dataclasses.replace(
+        carry.state, theta_m=xch.cell(carry.state.theta_m),
+        w=xch.cell(carry.state.w), rho_zz=xch.cell(carry.state.rho_zz),
+        u=xch.edge(carry.state.u), scalars=xch.cell(carry.state.scalars))
+    diag = dataclasses.replace(
+        carry.diag, pressure_p=xch.cell(carry.diag.pressure_p),
+        rtheta_p=xch.cell(carry.diag.rtheta_p),
+        exner=xch.cell(carry.diag.exner), rho_p=xch.cell(carry.diag.rho_p),
+        ru=xch.edge(carry.diag.ru), rw=xch.cell(carry.diag.rw))
 
     order = cfg.config_time_integration_order
     ns = cfg.config_number_of_sub_steps
@@ -153,6 +181,9 @@ def srk3_step(grid: AtmGrid, cfg: AtmConfig, carry: AtmCarry, dt,
                 ru_save, rw_save, th_save, rho_p_save, pressure_p,
                 ur_cell, vr_cell, euler, cqu=cqu, cqw=cqw, qtot=qtot,
                 rt_diabatic_tend=rt_diab)
+            # ref: tend_u layer-1-only halo exchange before the omega
+            # conversion (:642)
+            tend_u = xch.edge(tend_u, depth=1)
             tend_rw = set_smlstep_pert_variables(grid, tend_u, tend_w_raw)
 
             zero_e = torch.zeros_like(ru)
@@ -163,15 +194,28 @@ def srk3_step(grid: AtmGrid, cfg: AtmConfig, carry: AtmCarry, dt,
                               ruAvg=zero_e, wwAvg=zero_i)
             # damp=True folds the previous iteration's divergence damping
             # into this iteration (a no-op on the zero entry state); the
-            # last iteration's damping follows the loop
+            # last iteration's damping follows the loop. The reference's
+            # layer-1 rtheta_pp and rho_pp exchanges (:792, :845) fire as
+            # each field is produced.
             for _ in range(nsub[rk - 1]):
                 av = acoustic_step(
                     grid, cfg, coefs, av, rk_sub[rk - 1],
                     th_save, exner, w2, rho2, rw, rw_save, ru, ru_save,
                     tend_u, tend_rho, tend_theta, tend_rw,
-                    hoist=hoist, damp=True)
+                    hoist=hoist, damp=True,
+                    xch_rtheta=lambda x: xch.cell(x, depth=1))
+                av = av._replace(rho_pp=xch.cell(av.rho_pp, depth=1))
             av = divergence_damping_3d(grid, cfg, av, rk_sub[rk - 1],
                                        th_save, th_sum=hoist.th_sum)
+            # ref: rw_p/ru_p/rho_pp/rtheta_pp exchanged two layers deep
+            # before the recovery (:873-887); ruAvg/wwAvg full depth for
+            # the transport
+            av = av._replace(rw_p=xch.cell(av.rw_p, depth=2),
+                             ru_p=xch.edge(av.ru_p, depth=2),
+                             rho_pp=xch.cell(av.rho_pp, depth=2),
+                             rtheta_pp=xch.cell(av.rtheta_pp, depth=2),
+                             ruAvg=xch.edge(av.ruAvg),
+                             wwAvg=xch.cell(av.wwAvg))
 
             (u2, w2, th2, rho2, ru, rw, rho_p, rtheta_p, exner_new,
              pressure_p_new, ruAvg, wwAvg) = recover_large_step_variables(
@@ -180,6 +224,10 @@ def srk3_step(grid: AtmGrid, cfg: AtmConfig, carry: AtmCarry, dt,
                 rt_diabatic_tend=rt_diab)
             if rk == 3:
                 exner, pressure_p = exner_new, pressure_p_new
+            # ref: u full-halo exchange after the recovery (:988), w after
+            # the diagnostics (:1234-1248)
+            u2 = xch.edge(u2)
+            w2 = xch.cell(w2)
             sd = solve_diagnostics(grid, cfg, u2, rho2, dt,
                                    reconstruct_v=(rk == 3), v_prev=sd.v)
 
@@ -212,6 +260,7 @@ def srk3_step(grid: AtmGrid, cfg: AtmConfig, carry: AtmCarry, dt,
                     grid, cfg, scalars, sc_new, rho_zz_old_split, rho2,
                     ruAvg, wwAvg, tr_ts[rk - 1], True,
                     positive_definite_only=not cfg.config_monotonic)
+            sc_new = xch.cell(sc_new)
         scalars = sc_new
 
     # microphysics after transport, on the new time level; its theta_m
@@ -221,6 +270,12 @@ def srk3_step(grid: AtmGrid, cfg: AtmConfig, carry: AtmCarry, dt,
     if cfg.config_microp_scheme == "mp_kessler":
         (th2, scalars, rtheta_p, exner, pressure_p, rt_diab_out,
          rain) = microphysics_step(grid, th2, rho2, scalars, exner, dt)
+        th2 = xch.cell(th2)
+        scalars = xch.cell(scalars)
+        rtheta_p = xch.cell(rtheta_p)
+        exner = xch.cell(exner)
+        pressure_p = xch.cell(pressure_p)
+        rt_diab_out = xch.cell(rt_diab_out)
         rainnc = rainnc + rain
 
     ur_cell, vr_cell = reconstruct_cell_winds(grid, u2)
@@ -238,6 +293,12 @@ def srk3_step(grid: AtmGrid, cfg: AtmConfig, carry: AtmCarry, dt,
 def run_steps(grid: AtmGrid, cfg: AtmConfig, carry: AtmCarry, dt,
               n_steps: int) -> AtmCarry:
     """Advance `n_steps` timesteps."""
+    return run_steps_xch(grid, cfg, carry, dt, n_steps, None)
+
+
+def run_steps_xch(grid: AtmGrid, cfg: AtmConfig, carry: AtmCarry, dt,
+                  n_steps: int, xch) -> AtmCarry:
+    """Like run_steps, with exchange hooks (the sharded runner's)."""
     for _ in range(n_steps):
-        carry = srk3_step(grid, cfg, carry, dt)
+        carry = srk3_step(grid, cfg, carry, dt, xch=xch)
     return carry

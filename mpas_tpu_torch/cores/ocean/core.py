@@ -292,11 +292,12 @@ _RK_W = (1.0 / 6.0, 1.0 / 3.0, 1.0 / 3.0, 1.0 / 6.0)
 _RK_S = (0.5, 0.5, 1.0, 0.0)
 
 
-def _no_exchange(xch):
-    if xch is not None:
-        raise NotImplementedError(
-            "the ocean's exchange hooks (the sharded runner of "
-            "mpas_tpu/cores/ocean/distributed.py) are not ported")
+def _hooks(xch):
+    """(cell, edge) exchange hooks: the identity where xch is None (one
+    shard), else the sharded runner's halo refreshes."""
+    if xch is None:
+        return (lambda x, depth=None: x), (lambda x, depth=None: x)
+    return xch.cell, xch.edge
 
 
 def _nonzero(x):
@@ -307,8 +308,11 @@ def _nonzero(x):
 def rk4_step(grid: OcnGrid, cfg: OcnConfig, state: OcnState, dt,
              forcing=None, xch=None) -> OcnState:
     """ref: mpas_ocn_time_integration_rk4.F:74: the SW core's pool
-    choreography, with implicit vertical mixing after the RK update."""
-    _no_exchange(xch)
+    choreography, with implicit vertical mixing after the RK update.
+    xch: per-stage refresh of the provisional prognostics (the sharded
+    SW-core strategy: exchange prognostics, recompute diagnostics in the
+    halo); None on one shard."""
+    ce, ee = _hooks(xch)
     use_zt = cfg.config_use_freq_filtered_thickness \
         and state.highFreqThickness is not None
     u0, h0 = state.u, state.layerThickness
@@ -332,10 +336,12 @@ def rk4_step(grid: OcnGrid, cfg: OcnConfig, state: OcnState, dt,
             w = dt * _RK_S[stage]
             hp = h0 + w * th
             provis = OcnState(
-                u=u0 + w * tu, layerThickness=hp,
-                tracers=(hT0 + w * thT) / _nonzero(hp)[..., None],
-                lowFreqDivergence=lfd0 + w * tends[3] if use_zt else None,
-                highFreqThickness=hhf0 + w * tends[4] if use_zt else None)
+                u=ee(u0 + w * tu), layerThickness=ce(hp),
+                tracers=ce((hT0 + w * thT) / _nonzero(hp)[..., None]),
+                lowFreqDivergence=ce(lfd0 + w * tends[3]) if use_zt
+                else None,
+                highFreqThickness=ce(hhf0 + w * tends[4]) if use_zt
+                else None)
     if cfg.config_use_min_max_thickness:
         # conservative per-column clamping of the ALE target thickness
         # (ref: mpas_ocn_thick_ale.F:186-214); tracer mass rides along
@@ -404,8 +410,17 @@ def split_step(grid: OcnGrid, cfg: OcnConfig, state: OcnState,
     followed by implicit vertical mixing. The reference's scan over the
     barotropic subcycles is a Python loop over them here, with the same
     carries and arithmetic.
+
+    xch: optional exchange hooks (cores/ocean/distributed.py) fired at the
+    reference's halo-exchange points: ubcl per baroclinic iteration and G
+    after them, the 'subcycleFields' ssh + ubtr pair depth-restricted at
+    the top of every barotropic subcycle (ref exchange-group reuse,
+    mpas_ocn_time_integration_split.F:771; 2 + config_n_btr_cor_iter
+    rings deep), the 'finalBtrFields' group after subcycling
+    (:1282-1290), and the midpoint thickness and tracers between outer
+    passes. None on one shard.
     """
-    _no_exchange(xch)
+    ce, ee = _hooks(xch)
     mesh = grid.mesh
     not_bnd = 1.0 - mesh.boundaryEdge
     g = gravity
@@ -419,6 +434,11 @@ def split_step(grid: OcnGrid, cfg: OcnConfig, state: OcnState,
     n_ts = cfg.config_n_ts_iter
     n_bcl = _bcl_iterations(cfg)
     n_btr, n_loop = _btr_subcycles(cfg)
+    # halo rings a barotropic subcycle reads. The JAX package exchanges 2
+    # whatever the corrector count, which leaves the owned edges next to a
+    # shard boundary a ring short per corrector iteration (3e-7 x max|u|
+    # after one 300 s step of the 192-cell channel on 4 shards).
+    btr_depth = 2 + cfg.config_n_btr_cor_iter
     gam1 = cfg.config_btr_gam1_velWt1
     gam2 = cfg.config_btr_gam2_SSHWt1
 
@@ -461,12 +481,21 @@ def split_step(grid: OcnGrid, cfg: OcnConfig, state: OcnState,
             G = (h_edge * u_temp).sum(-1) / h_edge_safe / dt
             ubcl_new = 0.5 * (ubcl_cur + u_temp - dt * G[:, None]) \
                 * not_bnd[:, None]
+            # ref: normalBaroclinicVelocity exchanged per bcl iteration
+            ubcl_new = ee(ubcl_new)
+        G = ee(G)
 
         # --- stage 2: barotropic subcycling --------------------------------
         dtb = dt / n_btr
         ssh_o, ubtr_o = ssh_cur, ubtr_cur
         ubtr_acc, flux_acc = ubtr_cur, torch.zeros_like(ubtr_cur)
         for _ in range(n_loop):
+            # 'subcycleFields' exchange-group reuse, depth-restricted (ref
+            # :771, haloLayers on ssh + ubtr): the rings this body
+            # consumes, two for the predictor and one more per corrector
+            # iteration (btr_depth)
+            ssh_o = ce(ssh_o, depth=btr_depth)
+            ubtr_o = ee(ubtr_o, depth=btr_depth)
             # velocity predictor (ref :820-838)
             cor = _fperp(mesh, ubtr_o, f_edge)
             ubtr_n = not_bnd * (ubtr_o + dtb * (cor - g * grad_e(ssh_o) + G))
@@ -487,6 +516,9 @@ def split_step(grid: OcnGrid, cfg: OcnConfig, state: OcnState,
         # average does not (ref :1282-1290)
         flux_avg = flux_acc / n_loop
         ubtr_avg = ubtr_acc / (n_loop + 1)
+        # 'finalBtrFields' full-depth exchange (ref :1282-1290)
+        flux_avg = ee(flux_avg)
+        ubtr_avg = ee(ubtr_avg)
 
         # velocity correction (ref :1282-1345)
         u_full = ubtr_avg[:, None] + ubcl_new
@@ -516,6 +548,11 @@ def split_step(grid: OcnGrid, cfg: OcnConfig, state: OcnState,
                 / _nonzero(temp_h)[..., None]
             tr_new = 0.5 * (tr_cur + temp_tr)
             u_new = ubtr_avg[:, None] + ubcl_new
+            # the midpoint prognostics feed the next outer pass: refresh
+            # their halos (ref: the 'combined' exchange between ts
+            # iterations, :1390+)
+            h_new = ce(h_new)
+            tr_new = ce(tr_new)
             ssh_new = h_new.sum(-1) - grid.bottomDepth
         else:
             h_new = h_cur + dt * tend_h

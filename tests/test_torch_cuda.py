@@ -8,7 +8,9 @@ no JAX, so this file imports none and runs without the suite's conftest:
 Shapes are those of the paths (jw_120km: 40,962 cells x 26 levels;
 supercell_2km: 9,216 cells x 40 levels; jw_var60_15: 23,000 cells x 26
 levels at maxEdges 8; sw_tc5_120km: 40,962 cells at K = 1 and 2;
-ocean_channel_10km: 6,336 cells at K = 1, 20 and 40).
+ocean_channel_10km: 6,336 cells at K = 1, 20 and 40; the flat loopback
+layouts of jw_120km and ocean_channel_10km sharded 4 ways: 48,420 and
+9,940 cells, no multiple of a tile).
 Beyond those, the tiled kernels' edge cases: column and cell counts that
 no tile size divides, level counts from 2 to 500 (where K1's tile
 shrinks), and operands that start one element into their storage.
@@ -31,8 +33,9 @@ from mpas_tpu_torch.kernels.acoustic import (acoustic_cell_update,
 from mpas_tpu_torch.kernels.build import load_library
 from mpas_tpu_torch.kernels.tinydot import tinydot, tinydot_plain
 
-# (nC, nz) per path, and K1 at jw_120km_nz55's 55 levels
-PATHS = [(40962, 26), (9216, 40), (23000, 26), (40962, 55)]
+# (nC, nz) per path, K1 at jw_120km_nz55's 55 levels, and at the flat
+# loopback layout of jw_120km sharded 4 ways (4 x 12,105 padded cells)
+PATHS = [(40962, 26), (9216, 40), (23000, 26), (40962, 55), (48420, 26)]
 # (nC, P, I, K) of the TRiSK and second-derivative contractions of the
 # atmosphere paths (I = maxEdges), and the shallow-water TRiSK pair
 K2_SHAPES = [(nc, P, mE, K) for nc, nz, mE in ((40962, 26, 6),
@@ -40,7 +43,9 @@ K2_SHAPES = [(nc, P, mE, K) for nc, nz, mE in ((40962, 26, 6),
                                                (23000, 26, 8))
              for P, K in ((mE, nz), (mE, 2 * nz), (3, nz))] \
     + [(40962, 6, 6, 1), (40962, 6, 6, 2)] \
-    + [(6336, 6, 6, K) for K in (1, 20, 40)]
+    + [(6336, 6, 6, K) for K in (1, 20, 40)] \
+    + [(48420, P, 6, K) for P, K in ((6, 26), (6, 52), (3, 26))] \
+    + [(9940, 6, 6, K) for K in (1, 20, 40)]
 
 
 @pytest.fixture

@@ -81,16 +81,24 @@ def test_float32_step_after_to(mesh):
 @pytest.mark.parametrize("what", ["mp_wsm6", "mp_thompson", "mp_kessler",
                                   "exchange"])
 def test_srk3_step_refuses_unported_paths(mesh, what):
-    """WSM6, Thompson and the exchange hooks are not ported; Kessler needs
-    (qv, qc, qr) and the JW state carries one scalar, which the reference
-    rejects with ValueError too."""
+    """WSM6 and Thompson are not ported; Kessler needs (qv, qc, qr) and
+    the JW state carries one scalar, which the reference rejects with
+    ValueError too. The exchange hooks are ported (the sharded runner,
+    tests/test_torch_distributed.py): identity hooks are accepted and
+    leave the step exactly as it is without them."""
     kw = {} if what == "exchange" else {"config_microp_scheme": what}
     grid, cfg, state, carry = _setup(mesh, 2, 1200.0, **kw)
     assert state.scalars.shape[-1] == 1
-    xch = object() if what == "exchange" else None
+    if what == "exchange":
+        from mpas_tpu_torch.cores.atmosphere.time_integration import NO_XCH
+        a = srk3_step(grid, cfg, carry, cfg.config_dt, xch=NO_XCH)
+        b = srk3_step(grid, cfg, carry, cfg.config_dt)
+        for k in ("u", "w", "theta_m", "rho_zz", "scalars"):
+            assert torch.equal(getattr(a.state, k), getattr(b.state, k)), k
+        return
     error = ValueError if what == "mp_kessler" else NotImplementedError
     with pytest.raises(error):
-        srk3_step(grid, cfg, carry, cfg.config_dt, xch=xch)
+        srk3_step(grid, cfg, carry, cfg.config_dt)
 
 
 def test_srk3_step_rejects_unknown_scheme(mesh):
@@ -128,6 +136,12 @@ import mpas_tpu_torch.cores.ocean.vmix
 import mpas_tpu_torch.cores.ocean.kpp
 import mpas_tpu_torch.ops.matrix
 import mpas_tpu_torch.convert
+import mpas_tpu_torch.parallel.partition
+import mpas_tpu_torch.parallel.layout
+import mpas_tpu_torch.parallel.runner
+import mpas_tpu_torch.cores.atmosphere.distributed
+import mpas_tpu_torch.cores.ocean.distributed
+import mpas_tpu_torch.cores.sw.distributed
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCK]
 sys.exit(1 if bad else 0)
 """
