@@ -33,8 +33,13 @@ seconds):
    a 1,200-cell variable-resolution mesh (10 levels, 3 steps, mesh
    scaling on, a quarter of the Earth's radius), the moist supercell
    (144 cells, 16 levels, seeded cloud and rain, 6 steps with Kessler
-   microphysics), and the ocean's baroclinic channel (192 cells, 10
-   levels: 3 split-explicit steps of 300 s and 4 RK4 steps of 30 s);
+   microphysics), the same supercell with six species and WSM6 (6 steps;
+   both runs conserve total water, six species + rainnc, and dry mass to
+   1e-10), with WSM6 and the mesoscale_reference physics suite (6 coupled
+   steps), JW on the 642-cell sphere with six zero species, WSM6 and the
+   suite (3 steps; the suite's runs held at 1e-11 x max), and the ocean's
+   baroclinic channel (192 cells, 10 levels: 3 split-explicit steps of
+   300 s and 4 RK4 steps of 30 s);
    4b. small float64 sharded runs on the card, all shards in one process
    (loopback), held to the same runs unsharded on the card at 1e-11 x
    max: JW (642 cells, 10 levels, 3 steps) on 2 and 4 shards, the ocean
@@ -53,6 +58,14 @@ seconds):
      hex mesh with 40 levels, Kessler microphysics and three transported
      scalars, from an initial state seeded with cloud and rain (so the
      timed steps rain), also conserving total water;
+   - supercell_2km_mesoref: the same with WSM6 and six species, and the
+     mesoscale_reference suite (cldfra3, RRTMG-class LW/SW, MM5 surface
+     layer, Noah, YSU, GWDO, new Tiedtke) before every dynamics step
+     through run_steps_with_physics at 07:00 solar time (12 K1 and 30
+     K2 launches per step,
+     none from the suite); dry mass, non-negative species, rain at the
+     ground, a moving skin temperature, downward longwave after the
+     radiation-due warm step (timed on its own);
    - jw_var60_15: JW on the 23,000-cell 60-15 km variable-resolution mesh
      (maxEdges 8) of a quarter-radius planet, 26 levels, dt = 90 s, with
      mesh-scaled dissipation (12 K1 and 15 K2 launches per step);
@@ -73,12 +86,12 @@ seconds):
      against ocean_channel_10km).
 
 The second-to-last line is a JSON object with each kernel's numbers at
-its jw_120km float32 shape (launches summed over the seven paths), the
+its jw_120km float32 shape (launches summed over the eight paths), the
 last one {"ok": true, "device": {...}}. Without CUDA it fails before any
 result is printed.
 
 --profile DIR adds torch.profiler breakdowns of 3 steps of each of the
-seven paths.
+eight paths.
 """
 
 from __future__ import annotations
@@ -102,7 +115,15 @@ SLICE_RTOL = 1e-9                  # tests/test_torch_supercell.py
 K1_PER_STEP = 12   # 3 dynamics substeps x (1 + 1 + 2) acoustic iterations
 # K2: 3 solve_diagnostics + 9 dyn_tend q + 3 transport stages per scalar
 K2_PER_STEP = {"jw_120km": 3 + 9 + 3 * 1, "supercell_2km": 3 + 9 + 3 * 3,
-               "jw_var60_15": 3 + 9 + 3 * 1}
+               "jw_var60_15": 3 + 9 + 3 * 1,
+               "supercell_2km_mesoref": 3 + 9 + 3 * 6}
+PHYS_RTOL = 1e-11                  # the suite's f64 card-vs-CPU runs
+# supercell_2km_mesoref's solar time (the plane's lon is 0): 07:00, sun
+# up. At the reference's default noon the Noah skin temperature, explicit
+# in the surface fluxes, diverges over clear cells within a few steps, in
+# both packages (tests/test_torch_mesoref_slice.py)
+MESOREF_GMT = 7.0
+WATER_RTOL = 1e-10                 # tests/test_torch_mesoref_slice.py
 SW_K2_PER_STEP = 4 * 2             # 4 RK stages x (tangential + q pair)
 OCEAN_CELLS = 6336                 # channel_hex_mesh(32, 200, 10 km)
 OCEAN_NZ = 20
@@ -406,15 +427,15 @@ def compare_err_tol(label, fields, golden):
               "(not asserted)")
 
 
-def compare_scaled(label, fields):
-    """Hold the card's fields to the CPU's at SLICE_RTOL x max|cpu|."""
+def compare_scaled(label, fields, rel=SLICE_RTOL):
+    """Hold the card's fields to the CPU's at rel x max|cpu|."""
     for k, ref in fields["cpu"].items():
         scale = float(np.abs(ref).max())
         err = float(np.abs(fields["cuda"][k] - ref).max())
         print(f"  {k}: cuda vs cpu max abs err {err:.3e} (max|cpu| "
-              f"{scale:.3e}, bound {SLICE_RTOL:g} x max|cpu|)")
+              f"{scale:.3e}, bound {rel:g} x max|cpu|)")
         require(np.isfinite(fields["cuda"][k]).all(), k)
-        require(err <= SLICE_RTOL * scale,
+        require(err <= rel * scale,
                 f"{k}: CUDA f64 {label} run departs from the CPU run")
 
 
@@ -467,23 +488,128 @@ def check_small_varres(device):
     compare_scaled("varres", {w: state_fields(c) for w, c in outs.items()})
 
 
-def supercell_setup(n, nz):
+def supercell_setup(n, nz, scheme="mp_kessler"):
     """The supercell case on an n x n 2-km periodic mesh, its initial state
     seeded with cloud and rain (moisture.seeded_moisture) so that the
-    first steps already run Kessler's condensation, rain and
-    sedimentation."""
+    first steps already run the microphysics' condensation, rain and
+    sedimentation. With mp_wsm6 the state carries six species, (qi, qs,
+    qg) zero, as tests/test_atm_physics.py widens it."""
     from mpas_tpu_torch.cores.atmosphere.config import AtmConfig
     from mpas_tpu_torch.cores.atmosphere.init_supercell import init_supercell
     from mpas_tpu_torch.cores.atmosphere.moisture import seeded_moisture
     from mpas_tpu_torch.mesh.planar import planar_hex_mesh
     cfg = AtmConfig(config_dt=12.0, config_nvertlevels=nz,
                     config_len_disp=2000.0, config_xnutr=0.0,
-                    config_microp_scheme="mp_kessler", config_monotonic=True)
+                    config_microp_scheme=scheme, config_monotonic=True)
     grid, state, diag = init_supercell(planar_hex_mesh(n, n, 2000.0), cfg,
                                        case=5)
+    sc = seeded_moisture(grid.mesh, state.scalars, seed=7)
+    if scheme == "mp_wsm6":
+        sc = torch.cat([sc, torch.zeros_like(sc)], dim=-1)
+    return cfg, grid, dataclasses.replace(state, scalars=sc), diag
+
+
+def mesoref_config():
+    """PhysicsConfig of the mesoscale_reference suite, every scheme left at
+    the 'suite' sentinel and resolved (tests/test_physics_suite.py)."""
+    from mpas_tpu_torch.cores.atmosphere.physics.manager import (
+        SCHEME_FIELDS, PhysicsConfig, resolve_suite)
+    return resolve_suite(PhysicsConfig(
+        config_physics_suite="mesoscale_reference",
+        **{k: "suite" for k in SCHEME_FIELDS}))
+
+
+def suite_runs(label, device, cfg, grid, state, diag, steps):
+    """The same float64 coupled run (physics_step, then srk3_step) on the
+    CPU and on the card, through run_steps_with_physics with the resolved
+    mesoscale_reference suite and a Noah physics state; returns {"cpu":
+    (carry, phys), "cuda": (carry, phys)}."""
+    from mpas_tpu_torch.cores.atmosphere.hooks import run_steps_with_physics
+    from mpas_tpu_torch.cores.atmosphere.physics.manager import (
+        init_physics_state)
+    from mpas_tpu_torch.cores.atmosphere.time_integration import init_carry
+    from mpas_tpu_torch.ops.reconstruct import build_reconstruct_coeffs
+    pcfg = mesoref_config()
+    coeffs = torch.from_numpy(build_reconstruct_coeffs(grid.mesh))
+    nc, nz = grid.mesh.nCells, grid.vert.nz
+    outs = {}
+    for where, dev in (("cpu", torch.device("cpu")), ("cuda", device)):
+        f64 = torch.float64
+        g = grid.to(dev, f64)
+        carry = init_carry(g, cfg, state.to(dev, f64), diag.to(dev, f64),
+                           cfg.config_dt)
+        phys = init_physics_state(nc, nz, dtype=f64, lsm_scheme="noah",
+                                  device=dev)
+        t0 = time.perf_counter()
+        outs[where] = run_steps_with_physics(
+            g, cfg, carry, phys, coeffs.to(dev, f64), cfg.config_dt, steps,
+            pcfg=pcfg)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        print(f"small f64 {label} on {where}: {steps} steps in "
+              f"{time.perf_counter() - t0:.2f} s")
+    return outs
+
+
+PHYS_FIELDS = ("tsk", "rainc", "hpbl", "glw", "gsw", "rad_tend", "tslb",
+               "smois")
+
+
+def suite_fields(carry, phys):
+    out = state_fields(carry)
+    out.update(rainnc=carry.rainnc.cpu().numpy())
+    out.update({k: getattr(phys, k).cpu().numpy() for k in PHYS_FIELDS})
+    return out
+
+
+def check_small_wsm6(device):
+    """Phase 4: 6 f64 steps of the 144-cell, 16-level supercell with WSM6
+    alone, card vs CPU; both conserve dry mass and total water (six
+    species + rainnc) to WATER_RTOL."""
+    from mpas_tpu_torch.cores.atmosphere.moisture import masses
+    from mpas_tpu_torch.cores.atmosphere.time_integration import init_carry
+    cfg, grid, state, diag = supercell_setup(12, 16, "mp_wsm6")
+    outs = atm_runs("supercell WSM6", device, cfg, grid, state, diag, 6)
+    start = masses(grid, init_carry(grid, cfg, state, diag, cfg.config_dt))
+    fields = {}
+    for where, carry in outs.items():
+        g = grid.to(carry.rainnc.device, torch.float64)
+        drift = [abs(b - a) / a for a, b in zip(start, masses(g, carry))]
+        print(f"  {where}: dry-mass drift {drift[0]:.3e}, total-water "
+              f"(6 species + rainnc) drift {drift[1]:.3e}")
+        require(max(drift) <= WATER_RTOL, f"WSM6 on {where} loses mass")
+        fields[where] = state_fields(carry)
+        fields[where].update(rainnc=carry.rainnc.cpu().numpy(),
+                             rt_diabatic_tend=carry.rt_diabatic_tend.cpu()
+                             .numpy())
+    require(float(fields["cpu"]["rainnc"].max()) > 0.0
+            and float(fields["cpu"]["scalars"][..., 3:6].max()) > 0.0,
+            "the small WSM6 run made no rain or no ice-phase species")
+    compare_scaled("supercell WSM6", fields, PHYS_RTOL)
+
+
+def check_small_suite(device):
+    """Phase 4: 6 f64 coupled steps of the same supercell with the
+    mesoscale_reference suite and WSM6, card vs CPU."""
+    outs = suite_runs("supercell suite + WSM6", device,
+                      *supercell_setup(12, 16, "mp_wsm6"), 6)
+    compare_scaled("supercell suite + WSM6",
+                   {w: suite_fields(*o) for w, o in outs.items()}, PHYS_RTOL)
+
+
+def check_small_sphere_suite(device, mesh8):
+    """Phase 4: 3 f64 coupled steps of JW on the 642-cell sphere with six
+    zero species, WSM6 and the suite, card vs CPU: the sphere's branches
+    of cos_zenith, build_reconstruct_coeffs and reconstruct."""
+    cfg, grid, state, diag = jw_setup(mesh8, 10, 1200.0, 960000.0,
+                                      config_microp_scheme="mp_wsm6")
     state = dataclasses.replace(
-        state, scalars=seeded_moisture(grid.mesh, state.scalars, seed=7))
-    return cfg, grid, state, diag
+        state, scalars=torch.zeros(state.scalars.shape[:2] + (6,),
+                                   dtype=state.scalars.dtype))
+    outs = suite_runs("JW sphere suite + WSM6", device, cfg, grid, state,
+                      diag, 3)
+    compare_scaled("JW sphere suite + WSM6",
+                   {w: suite_fields(*o) for w, o in outs.items()}, PHYS_RTOL)
 
 
 def check_small_supercell(device):
@@ -589,6 +715,118 @@ def run_supercell_path(device, card):
           f"{sed}")
     require(drift[1] <= 1e-5, f"total water not conserved: {drift[1]:.3e}")
     return cfg, grid, carry, counts
+
+
+def run_mesoref_path(device, card):
+    """Phase 5, supercell_2km_mesoref: supercell_2km (bench.py:104-119) with
+    WSM6 and the mesoscale_reference suite in place of Kessler alone, in
+    float32, at MESOREF_GMT, through run_steps_with_physics one step at a
+    time: host setup
+    (grid, seeded six-species state, reconstruction coefficients), copy to
+    the card, init_carry, one warm step (radiation is due in it, timed on
+    its own), MAIN_STEPS timed steps; the launch counters are zeroed just
+    before init_carry and read after every step."""
+    from mpas_tpu_torch import kernels
+    from mpas_tpu_torch.cores.atmosphere.hooks import run_steps_with_physics
+    from mpas_tpu_torch.cores.atmosphere.moisture import (RHO_WATER,
+                                                          masses)
+    from mpas_tpu_torch.cores.atmosphere.physics.manager import (
+        SCHEME_FIELDS, init_physics_state)
+    from mpas_tpu_torch.cores.atmosphere.time_integration import init_carry
+    from mpas_tpu_torch.ops.reconstruct import build_reconstruct_coeffs
+    name, f32 = "supercell_2km_mesoref", torch.float32
+    t0 = time.perf_counter()
+    cfg, grid, state, diag = supercell_setup(96, 40, "mp_wsm6")
+    coeffs = build_reconstruct_coeffs(grid.mesh)
+    pcfg = mesoref_config()
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grid, state, diag = (grid.to(device, f32), state.to(device, f32),
+                         diag.to(device, f32))
+    coeffs = torch.from_numpy(coeffs).to(device, f32)
+    nc, nz = grid.mesh.nCells, grid.vert.nz
+    phys = init_physics_state(nc, nz, dtype=f32, lsm_scheme="noah",
+                              device=device)
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    schemes = ", ".join(getattr(pcfg, k) for k in SCHEME_FIELDS)
+    print(f"{name} setup: {nc} cells x {nz} levels, "
+          f"{state.scalars.shape[-1]} scalars, suite {schemes}; host build "
+          f"{host_s:.2f} s (reconstruction coefficients included), copy to "
+          f"card {copy_s:.2f} s")
+    require((nc, nz, state.scalars.shape[-1]) == (9216, 40, 6),
+            f"{name} built the wrong size")
+
+    dt = cfg.config_dt
+    per_step = {"acoustic_cell_update": K1_PER_STEP,
+                "tinydot": K2_PER_STEP[name]}
+    kernels.reset_launch_counts()
+    carry = init_carry(grid, cfg, state, diag, dt)
+    mass0 = masses(grid, carry)
+    seen = [dict(kernels.launch_counts)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry, phys = run_steps_with_physics(grid, cfg, carry, phys, coeffs, dt,
+                                         1, pcfg=pcfg,
+                                         gmt_hours=MESOREF_GMT)  # warm step
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    seen.append(dict(kernels.launch_counts))
+    glw_min = float(phys.glw.min())
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    for _ in range(MAIN_STEPS):
+        carry, phys = run_steps_with_physics(grid, cfg, carry, phys, coeffs,
+                                             dt, 1, pcfg=pcfg,
+                                             gmt_hours=MESOREF_GMT)
+        seen.append(dict(kernels.launch_counts))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = seen[-1]
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+
+    for kname, n in per_step.items():
+        got = [b[kname] - a[kname] for a, b in zip(seen, seen[1:])]
+        require(got == [n] * (MAIN_STEPS + 1),
+                f"{name}: {kname} launches per step {got}, expected {n}")
+    for k in STATE_FIELDS:
+        require(bool(torch.isfinite(getattr(carry.state, k)).all()), k)
+    require(bool(torch.isfinite(carry.rainnc).all()), "rainnc not finite")
+    for f in dataclasses.fields(phys):
+        v = getattr(phys, f.name)
+        require(v is None or bool(torch.isfinite(v).all()),
+                f"physics state {f.name} not finite")
+    mass1 = masses(grid, carry)
+    drift = abs(mass1[0] - mass0[0]) / mass0[0]
+    sc = carry.state.scalars
+    area = grid.mesh.areaCell.double()
+    rain_kg = [float((r.double() * RHO_WATER * area).sum())
+               for r in (carry.rainnc, phys.rainc)]
+    species = ("qv", "qc", "qr", "qi", "qs", "qg")
+    ms = 1e3 * elapsed / MAIN_STEPS
+    print(f"{name} float32 on {card}: {MAIN_STEPS} steps in {elapsed:.3f} s "
+          f"= {ms:.2f} ms/step, {nc * MAIN_STEPS / elapsed:.1f} cell-column "
+          f"updates/s; peak device memory {peak_gb:.2f} GB; radiation-due "
+          f"warm step {warm_s:.3f} s; dry-mass drift {drift:.3e}; launches "
+          f"{counts} (per step: K1 {per_step['acoustic_cell_update']}, K2 "
+          f"{per_step['tinydot']})")
+    print(f"{name} after {MAIN_STEPS + 1} steps: max w "
+          f"{float(carry.state.w.max()):.4f} m/s; "
+          + ", ".join(f"max {q} {float(sc[..., i].max()):.4e}"
+                      for i, q in enumerate(species[1:], 1))
+          + f"; total water {mass1[1] - mass0[1]:+.6e} kg (rainnc "
+          f"{rain_kg[0]:.6e} kg in the budget, rainc {rain_kg[1]:.6e} kg "
+          f"outside it; a budget, not an invariant: surface evaporation "
+          f"and convective rain); tsk std {float(phys.tsk.std()):.4e} K, "
+          f"min glw after the warm step {glw_min:.3f} W/m2")
+    require(drift <= 1e-5, f"{name}: dry mass not conserved: {drift:.3e}")
+    require(float(sc[..., :6].min()) >= 0.0, f"{name}: a negative species")
+    require(float(carry.rainnc.max()) > 0.0, f"{name}: no rain reached "
+            "the ground")
+    require(float(phys.tsk.std()) > 0.0, f"{name}: tsk did not move")
+    require(glw_min > 0.0, f"{name}: no downward longwave after the "
+            "radiation call")
+    return cfg, grid, carry, phys, coeffs, pcfg, counts
 
 
 def run_sw_path(device, card, mesh):
@@ -1148,12 +1386,14 @@ PROFILE_REGIONS = ("compute_dyn_tend", "acoustic_step", "solve_diagnostics",
                    "reconstruct_cell_winds", "compute_moist_coefficients")
 
 
-def profile_steps(name, step, out_dir, module=None, regions=(), steps=3):
+def profile_steps(name, step, out_dir, module=None, regions=(), steps=3,
+                  more=()):
     """--profile DIR: torch.profiler over `steps` calls of step(), with a
     record_function span around each function of `module` named in
-    `regions` (patched in for the run and restored after). Prints device
-    time and kernel count per step, K1 and K2, and per region, and writes
-    the per-kernel table to DIR/profile_<name>.txt."""
+    `regions`, and of each (module, names) pair in `more` (patched in for
+    the run and restored after). Prints device time and kernel count per
+    step, K1 and K2, and per region, and writes the per-kernel table to
+    DIR/profile_<name>.txt."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1163,18 +1403,21 @@ def profile_steps(name, step, out_dir, module=None, regions=(), steps=3):
                 return fn(*args, **kwargs)
         return call
 
-    saved = {n: getattr(module, n) for n in regions}
+    pairs = ((module, tuple(regions)),) + tuple(more)
+    regions = tuple(n for _, names in pairs for n in names)
+    saved = [(mod, n, getattr(mod, n)) for mod, names in pairs
+             for n in names]
     try:
-        for n, fn in saved.items():
-            setattr(module, n, spanned(n, fn))
+        for mod, n, fn in saved:
+            setattr(mod, n, spanned(n, fn))
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
                 step()
             torch.cuda.synchronize()
     finally:
-        for n, fn in saved.items():
-            setattr(module, n, fn)
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
 
     # CUDA-side events named after a region are the record_function spans
     # on the device timeline (first to last kernel, gaps included); the
@@ -1222,6 +1465,36 @@ def profile_srk3(name, cfg, grid, carry, out_dir):
     profile_steps(name, step, out_dir, ti, PROFILE_REGIONS)
 
 
+def profile_mesoref(cfg, grid, carry, phys, coeffs, pcfg, out_dir):
+    """--profile of supercell_2km_mesoref: spans around physics_step, its
+    schemes, WSM6 and the dycore calls."""
+    from mpas_tpu_torch.cores.atmosphere import time_integration as ti
+    from mpas_tpu_torch.cores.atmosphere.hooks import run_steps_with_physics
+    from mpas_tpu_torch.cores.atmosphere.physics import (cldfra3, gwdo,
+                                                         manager, rrtmg,
+                                                         tiedtke, ysu)
+    box = [(carry, phys)]
+
+    def step():
+        box[0] = run_steps_with_physics(grid, cfg, *box[0], coeffs,
+                                        cfg.config_dt, 1, pcfg=pcfg,
+                                        gmt_hours=MESOREF_GMT)
+    schemes = ((rrtmg, ("rrtmg_lw", "rrtmg_sw")), (cldfra3, ("cal_cldfra3",)),
+               (gwdo, ("gwdo",)), (tiedtke, ("tiedtke",)), (ysu, ("ysu",)))
+    profile_steps("supercell_2km_mesoref", step, out_dir, ti,
+                  PROFILE_REGIONS + ("microphysics_step_wsm6",),
+                  more=((manager, ("physics_step",)),) + schemes)
+
+    def physics_only():
+        c, p = box[0]
+        manager.physics_step(grid, pcfg, grid.mesh, coeffs, c.state, c.diag,
+                             p, cfg.config_dt, gmt_hours=MESOREF_GMT)
+    # physics_step alone: its kernels a step (the count a CUDA graph of it
+    # would replay)
+    profile_steps("supercell_2km_mesoref_physics_step", physics_only,
+                  out_dir, manager, ("physics_step",), more=schemes)
+
+
 def timed(label, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -1234,7 +1507,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
                         help="also profile 3 steps of jw_120km, "
-                             "sw_tc5_120km, supercell_2km, jw_var60_15, "
+                             "sw_tc5_120km, supercell_2km, "
+                             "supercell_2km_mesoref, jw_var60_15, "
                              "ocean_channel_10km and the two 4-way paths; "
                              "the kernel tables go to "
                              "DIR/profile_<path>.txt")
@@ -1264,6 +1538,10 @@ def main():
     timed("small f64 sw_tc5", check_small_sw, device, mesh8)
     timed("small f64 varres JW", check_small_varres, device)
     timed("small f64 supercell", check_small_supercell, device)
+    timed("small f64 supercell WSM6", check_small_wsm6, device)
+    timed("small f64 supercell suite + WSM6", check_small_suite, device)
+    timed("small f64 JW sphere suite + WSM6", check_small_sphere_suite,
+          device, mesh8)
     timed("small f64 ocean", check_small_ocean, device)
     timed("small f64 sharded, loopback", check_small_sharded, device, mesh8)
     timed("process group on NCCL", check_nccl_exchange, device, mesh8)
@@ -1309,6 +1587,11 @@ def main():
     if args.profile:
         profile_srk3("supercell_2km", cfg, grid, carry, args.profile)
     del grid, carry
+    cfg, grid, carry, phys, coeffs, pcfg, counts["supercell_2km_mesoref"] = \
+        timed("supercell_2km_mesoref", run_mesoref_path, device, card)
+    if args.profile:
+        profile_mesoref(cfg, grid, carry, phys, coeffs, pcfg, args.profile)
+    del grid, carry, phys, coeffs
     cfg, grid, carry, counts["jw_var60_15"] = timed(
         "jw_var60_15", run_var_path, device, card)
     if args.profile:

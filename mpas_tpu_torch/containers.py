@@ -1,10 +1,21 @@
-"""Device/dtype moves shared by the port's dataclass containers."""
+"""Device/dtype moves shared by the port's dataclass containers, and the
+default device of the entry points that build state."""
 
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device`, or cuda:0 where it is None; raises where CUDA is absent."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run "
+                               "on the CPU")
+        return torch.device("cuda:0")
+    return torch.device(device)
 
 
 def to_device(obj, device, dtype):

@@ -1,10 +1,11 @@
 """Carry a state across from the reference package.
 
 The input is the reference's `AtmGrid`/`AtmState`/`AtmDiag`/`AtmCarry`,
-`SWState`, `OcnGrid`/`OcnState`/`OcnSurfaceForcing` or `ShardedMesh`
+`PhysicsState`, `SWState`, `OcnGrid`/`OcnState`/`OcnSurfaceForcing` or `ShardedMesh`
 flattened to nested dicts of numpy arrays plus their static ints and
 floats (nCells, nz, cf1..3, adv_beta, sphere_radius, ...): the same field
-names, no JAX types. Fields the port does not carry (the indexed advection stencil)
+names, no JAX types. The reconstruction coefficients are a plain array
+(torch.from_numpy). Fields the port does not carry (the indexed advection stencil)
 are ignored. Arrays become CPU tensors of the same float dtype; index
 arrays become int64; fields that are None stay None.
 """
@@ -18,6 +19,7 @@ import torch
 
 from mpas_tpu_torch.cores.atmosphere.setup import AtmGrid, VerticalGrid
 from mpas_tpu_torch.cores.atmosphere.state import AtmDiag, AtmState
+from mpas_tpu_torch.cores.atmosphere.physics.manager import PhysicsState
 from mpas_tpu_torch.cores.atmosphere.time_integration import AtmCarry
 from mpas_tpu_torch.cores.ocean.forcing import OcnSurfaceForcing
 from mpas_tpu_torch.cores.ocean.state import OcnGrid, OcnState
@@ -65,6 +67,13 @@ def diag_from_arrays(d) -> AtmDiag:
 def carry_from_arrays(d) -> AtmCarry:
     return _build(AtmCarry, d, state=state_from_arrays(d["state"]),
                   diag=diag_from_arrays(d["diag"]))
+
+
+def physics_state_from_arrays(d) -> PhysicsState:
+    """A flattened reference PhysicsState; fields that are None (the Noah
+    soil column in slab mode, the sea-ice and glacier masks, ...) stay
+    None."""
+    return _build(PhysicsState, d)
 
 
 def sw_state_from_arrays(d) -> SWState:

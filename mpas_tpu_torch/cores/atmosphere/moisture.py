@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mpas_tpu_torch.cores.atmosphere.physics.driver import IDX_QR, IDX_QV
+from mpas_tpu_torch.cores.atmosphere.physics.driver import IDX_QG, IDX_QV
 
 RHO_WATER = 1000.0   # kg/m^3, converts rainnc (m) to kg/m^2
 
@@ -44,12 +44,14 @@ def seeded_moisture(mesh, scalars, seed):
 def masses(grid, carry):
     """(dry-air mass, total water) in kg, summed in float64 on the carry's
     device. Dry air is rho_zz*dzw*area per layer, the quantity the
-    flux-form dycore conserves; total water is that mass times qv+qc+qr
-    plus the accumulated surface rain (rainnc x RHO_WATER x area)."""
+    flux-form dycore conserves; total water is that mass times the sum of
+    the mixing ratios the state carries among qv, qc, qr, qi, qs, qg
+    (scalars 0-5; never the number concentrations of Thompson's 6-7), plus
+    the accumulated surface precipitation (rainnc x RHO_WATER x area)."""
     area = grid.mesh.areaCell.double()
     air = carry.state.rho_zz.double() * grid.vert.dzw.double() \
         * area[:, None]
-    q = carry.state.scalars.double()[..., IDX_QV:IDX_QR + 1].sum(-1)
+    q = carry.state.scalars.double()[..., IDX_QV:IDX_QG + 1].sum(-1)
     water = (air * q).sum() + (carry.rainnc.double() * RHO_WATER
                                * area).sum()
     return float(air.sum()), float(water)

@@ -1,5 +1,5 @@
 """Split-explicit RK3 time stepping of the nonhydrostatic core, dry or
-moist with Kessler microphysics (port of
+moist with Kessler or WSM6 microphysics (port of
 mpas_tpu/cores/atmosphere/time_integration.py).
 
 ref: atm_srk3, src/core_atmosphere/dynamics/mpas_atm_time_integration.F:142.
@@ -30,7 +30,8 @@ from mpas_tpu_torch.cores.atmosphere.nhyd import (AcousticVars, AtmSolveDiag,
                                                   set_smlstep_pert_variables,
                                                   solve_diagnostics,
                                                   vert_imp_coefs)
-from mpas_tpu_torch.cores.atmosphere.physics.driver import microphysics_step
+from mpas_tpu_torch.cores.atmosphere.physics.driver import (
+    microphysics_step, microphysics_step_wsm6)
 from mpas_tpu_torch.cores.atmosphere.setup import AtmGrid
 from mpas_tpu_torch.cores.atmosphere.state import AtmDiag, AtmState
 from mpas_tpu_torch.cores.atmosphere.transport import (advance_scalars,
@@ -91,17 +92,29 @@ NO_XCH = _NoExchange()
 
 
 def _check_supported(cfg: AtmConfig, state: AtmState):
+    """The reference's scheme and scalar-count checks (:89-106); Thompson
+    is not ported."""
     scheme = cfg.config_microp_scheme
+    nsc = state.scalars.shape[-1]
     if scheme not in ("off", "mp_kessler", "mp_wsm6", "mp_thompson"):
         raise ValueError(
             f"unknown config_microp_scheme {scheme!r}; supported: 'off', "
             "'mp_kessler', 'mp_wsm6', 'mp_thompson'")
-    if scheme in ("mp_wsm6", "mp_thompson"):
-        raise NotImplementedError(f"config_microp_scheme={scheme!r} is not "
-                                  "ported; 'off' and 'mp_kessler' are")
-    if scheme == "mp_kessler" and state.scalars.shape[-1] < 3:
+    if scheme == "mp_kessler" and nsc < 3:
         raise ValueError("mp_kessler requires scalars (qv, qc, qr); "
-                         f"got {state.scalars.shape[-1]} scalar(s)")
+                         f"got {nsc} scalar(s)")
+    if scheme == "mp_wsm6" and nsc < 6:
+        raise ValueError("mp_wsm6 requires scalars (qv,qc,qr,qi,qs,qg); "
+                         f"got {nsc} scalar(s)")
+    if scheme == "mp_thompson" and nsc < 8:
+        raise ValueError(
+            "mp_thompson requires scalars (qv,qc,qr,qi,qs,qg,nr,ni); "
+            f"got {nsc} scalar(s)")
+    if scheme == "mp_thompson":
+        raise NotImplementedError(
+            "config_microp_scheme='mp_thompson' is not ported (it waits "
+            "for physics/thompson.py); 'off', 'mp_kessler' and 'mp_wsm6' "
+            "are")
 
 
 def srk3_step(grid: AtmGrid, cfg: AtmConfig, carry: AtmCarry, dt,
@@ -267,9 +280,11 @@ def srk3_step(grid: AtmGrid, cfg: AtmConfig, carry: AtmCarry, dt,
     # tendency feeds the next step's dynamics (ref: atm_srk3 :1654
     # driver_microphysics)
     rt_diab_out, rainnc = carry.rt_diabatic_tend, carry.rainnc
-    if cfg.config_microp_scheme == "mp_kessler":
+    if cfg.config_microp_scheme in ("mp_kessler", "mp_wsm6"):
+        mp = microphysics_step if cfg.config_microp_scheme == "mp_kessler" \
+            else microphysics_step_wsm6
         (th2, scalars, rtheta_p, exner, pressure_p, rt_diab_out,
-         rain) = microphysics_step(grid, th2, rho2, scalars, exner, dt)
+         rain) = mp(grid, th2, rho2, scalars, exner, dt)
         th2 = xch.cell(th2)
         scalars = xch.cell(scalars)
         rtheta_p = xch.cell(rtheta_p)

@@ -35,19 +35,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from mpas_tpu_torch.containers import resolve_device
 from mpas_tpu_torch.parallel.layout import (HaloExchange, NeighborExchange,
                                             ShardedMesh)
 from mpas_tpu_torch.parallel.partition import _np
-
-
-def resolve_device(device=None) -> torch.device:
-    """`device`, or cuda:0 where it is None; raises where CUDA is absent."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to run "
-                               "the shards on the CPU")
-        return torch.device("cuda:0")
-    return torch.device(device)
 
 
 class ShardGroup:

@@ -81,9 +81,11 @@ def test_float32_step_after_to(mesh):
 @pytest.mark.parametrize("what", ["mp_wsm6", "mp_thompson", "mp_kessler",
                                   "exchange"])
 def test_srk3_step_refuses_unported_paths(mesh, what):
-    """WSM6 and Thompson are not ported; Kessler needs (qv, qc, qr) and
+    """Kessler needs (qv, qc, qr), WSM6 six species and Thompson eight;
     the JW state carries one scalar, which the reference rejects with
-    ValueError too. The exchange hooks are ported (the sharded runner,
+    ValueError too (Thompson with eight species is not ported, and
+    raises NotImplementedError: tests/test_torch_physics.py). The
+    exchange hooks are ported (the sharded runner,
     tests/test_torch_distributed.py): identity hooks are accepted and
     leave the step exactly as it is without them."""
     kw = {} if what == "exchange" else {"config_microp_scheme": what}
@@ -96,8 +98,7 @@ def test_srk3_step_refuses_unported_paths(mesh, what):
         for k in ("u", "w", "theta_m", "rho_zz", "scalars"):
             assert torch.equal(getattr(a.state, k), getattr(b.state, k)), k
         return
-    error = ValueError if what == "mp_kessler" else NotImplementedError
-    with pytest.raises(error):
+    with pytest.raises(ValueError):
         srk3_step(grid, cfg, carry, cfg.config_dt)
 
 
@@ -125,6 +126,12 @@ import mpas_tpu_torch.cores.atmosphere.time_integration
 import mpas_tpu_torch.cores.atmosphere.init_supercell
 import mpas_tpu_torch.cores.atmosphere.moisture
 import mpas_tpu_torch.cores.atmosphere.physics.driver
+import mpas_tpu_torch.cores.atmosphere.hooks
+import mpas_tpu_torch.cores.atmosphere.physics.manager
+import mpas_tpu_torch.cores.atmosphere.physics.rrtmg
+import mpas_tpu_torch.cores.atmosphere.physics.wsm6
+import mpas_tpu_torch.ops.reconstruct
+import mpas_tpu_torch.tools.mesoref_noon
 import mpas_tpu_torch.mesh.planar
 import mpas_tpu_torch.mesh.varres
 import mpas_tpu_torch.cores.sw.time_integration
