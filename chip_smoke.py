@@ -37,9 +37,14 @@ seconds):
    both runs conserve total water, six species + rainnc, and dry mass to
    1e-10), with WSM6 and the mesoscale_reference physics suite (6 coupled
    steps), JW on the 642-cell sphere with six zero species, WSM6 and the
-   suite (3 steps; the suite's runs held at 1e-11 x max), and the ocean's
-   baroclinic channel (192 cells, 10 levels: 3 split-explicit steps of
-   300 s and 4 RK4 steps of 30 s);
+   suite (3 steps; the suite's runs held at 1e-11 x max), the supercell
+   with eight species, Thompson and the convection_permitting suite (6
+   coupled steps at 07:00; rain, qke finite and >= 0), with WSM6 and the
+   default PhysicsConfig() (Kain-Fritsch, 6 coupled steps at 07:00), and
+   kf_eta alone on 24 deep unstable columns (40 levels to 25 km; it fires
+   in every column), all held at 1e-11 x max; and the ocean's baroclinic
+   channel (192 cells, 10 levels: 3 split-explicit steps of 300 s and 4
+   RK4 steps of 30 s);
    4b. small float64 sharded runs on the card, all shards in one process
    (loopback), held to the same runs unsharded on the card at 1e-11 x
    max: JW (642 cells, 10 levels, 3 steps) on 2 and 4 shards, the ocean
@@ -66,6 +71,17 @@ seconds):
      none from the suite); dry mass, non-negative species, rain at the
      ground, a moving skin temperature, downward longwave after the
      radiation-due warm step (timed on its own);
+   - supercell_2km_convperm: the same with Thompson, eight species (nr and
+     ni from 1e-2) and the convection_permitting suite (Grell-Freitas,
+     MYNN PBL and surface layer, RRTMG-class radiation, cldfra3, GWDO,
+     Noah) at 07:00 (12 K1 and 36 K2 launches per step); the numbers in
+     [1e-2, 1e8], qke finite and >= 0, rain;
+   - supercell_2km_kf: supercell_2km_mesoref's grid and start with the
+     driver hook's default PhysicsConfig() (Kain-Fritsch, YSU, MM5 surface
+     layer, slab LSM, broadband radiation) at 07:00 (12 K1 and 30 K2 a
+     step); the columns Kain-Fritsch activated, the largest rainc and
+     kf_eta's kernels and device ms a call. The three suite paths print
+     their kernels and device busy ms a step from one profiled step;
    - jw_var60_15: JW on the 23,000-cell 60-15 km variable-resolution mesh
      (maxEdges 8) of a quarter-radius planet, 26 levels, dt = 90 s, with
      mesh-scaled dissipation (12 K1 and 15 K2 launches per step);
@@ -86,12 +102,12 @@ seconds):
      against ocean_channel_10km).
 
 The second-to-last line is a JSON object with each kernel's numbers at
-its jw_120km float32 shape (launches summed over the eight paths), the
+its jw_120km float32 shape (launches summed over the ten paths), the
 last one {"ok": true, "device": {...}}. Without CUDA it fails before any
 result is printed.
 
 --profile DIR adds torch.profiler breakdowns of 3 steps of each of the
-eight paths.
+ten paths.
 """
 
 from __future__ import annotations
@@ -116,12 +132,14 @@ K1_PER_STEP = 12   # 3 dynamics substeps x (1 + 1 + 2) acoustic iterations
 # K2: 3 solve_diagnostics + 9 dyn_tend q + 3 transport stages per scalar
 K2_PER_STEP = {"jw_120km": 3 + 9 + 3 * 1, "supercell_2km": 3 + 9 + 3 * 3,
                "jw_var60_15": 3 + 9 + 3 * 1,
-               "supercell_2km_mesoref": 3 + 9 + 3 * 6}
+               "supercell_2km_mesoref": 3 + 9 + 3 * 6,
+               "supercell_2km_convperm": 3 + 9 + 3 * 8,
+               "supercell_2km_kf": 3 + 9 + 3 * 6}
 PHYS_RTOL = 1e-11                  # the suite's f64 card-vs-CPU runs
-# supercell_2km_mesoref's solar time (the plane's lon is 0): 07:00, sun
-# up. At the reference's default noon the Noah skin temperature, explicit
-# in the surface fluxes, diverges over clear cells within a few steps, in
-# both packages (tests/test_torch_mesoref_slice.py)
+# the suite paths' solar time (the plane's lon is 0): 07:00, sun up. At
+# the reference's default noon the Noah skin temperature, explicit in the
+# surface fluxes, diverges over clear cells within a few steps, in both
+# packages (tests/test_torch_mesoref_slice.py)
 MESOREF_GMT = 7.0
 WATER_RTOL = 1e-10                 # tests/test_torch_mesoref_slice.py
 SW_K2_PER_STEP = 4 * 2             # 4 RK stages x (tangential + q pair)
@@ -493,7 +511,9 @@ def supercell_setup(n, nz, scheme="mp_kessler"):
     seeded with cloud and rain (moisture.seeded_moisture) so that the
     first steps already run the microphysics' condensation, rain and
     sedimentation. With mp_wsm6 the state carries six species, (qi, qs,
-    qg) zero, as tests/test_atm_physics.py widens it."""
+    qg) zero, as tests/test_atm_physics.py widens it; with mp_thompson
+    eight, the numbers (nr, ni) at 1e-2 as
+    tests/test_atm_scheme_variants.py widens it."""
     from mpas_tpu_torch.cores.atmosphere.config import AtmConfig
     from mpas_tpu_torch.cores.atmosphere.init_supercell import init_supercell
     from mpas_tpu_torch.cores.atmosphere.moisture import seeded_moisture
@@ -504,32 +524,40 @@ def supercell_setup(n, nz, scheme="mp_kessler"):
     grid, state, diag = init_supercell(planar_hex_mesh(n, n, 2000.0), cfg,
                                        case=5)
     sc = seeded_moisture(grid.mesh, state.scalars, seed=7)
-    if scheme == "mp_wsm6":
+    if scheme in ("mp_wsm6", "mp_thompson"):
         sc = torch.cat([sc, torch.zeros_like(sc)], dim=-1)
+    if scheme == "mp_thompson":
+        sc = torch.cat([sc, torch.full_like(sc[..., :2], 1e-2)], dim=-1)
     return cfg, grid, dataclasses.replace(state, scalars=sc), diag
 
 
-def mesoref_config():
-    """PhysicsConfig of the mesoscale_reference suite, every scheme left at
-    the 'suite' sentinel and resolved (tests/test_physics_suite.py)."""
+def suite_config(suite):
+    """PhysicsConfig of a suite, every scheme left at the 'suite' sentinel
+    and resolved (tests/test_physics_suite.py)."""
     from mpas_tpu_torch.cores.atmosphere.physics.manager import (
         SCHEME_FIELDS, PhysicsConfig, resolve_suite)
     return resolve_suite(PhysicsConfig(
-        config_physics_suite="mesoscale_reference",
-        **{k: "suite" for k in SCHEME_FIELDS}))
+        config_physics_suite=suite, **{k: "suite" for k in SCHEME_FIELDS}))
 
 
-def suite_runs(label, device, cfg, grid, state, diag, steps):
+MESOREF_INIT = dict(lsm_scheme="noah")
+CONVPERM_INIT = dict(lsm_scheme="noah", pbl_scheme="mynn")
+
+
+def suite_runs(label, device, cfg, grid, state, diag, steps,
+               pcfg="mesoscale_reference", init_kw=MESOREF_INIT,
+               gmt_hours=12.0):
     """The same float64 coupled run (physics_step, then srk3_step) on the
     CPU and on the card, through run_steps_with_physics with the resolved
-    mesoscale_reference suite and a Noah physics state; returns {"cpu":
-    (carry, phys), "cuda": (carry, phys)}."""
+    suite `pcfg` (a suite's name; None for PhysicsConfig()) from
+    init_physics_state(**init_kw); returns {"cpu": (carry, phys), "cuda":
+    (carry, phys)}."""
     from mpas_tpu_torch.cores.atmosphere.hooks import run_steps_with_physics
     from mpas_tpu_torch.cores.atmosphere.physics.manager import (
         init_physics_state)
     from mpas_tpu_torch.cores.atmosphere.time_integration import init_carry
     from mpas_tpu_torch.ops.reconstruct import build_reconstruct_coeffs
-    pcfg = mesoref_config()
+    pcfg = None if pcfg is None else suite_config(pcfg)
     coeffs = torch.from_numpy(build_reconstruct_coeffs(grid.mesh))
     nc, nz = grid.mesh.nCells, grid.vert.nz
     outs = {}
@@ -538,12 +566,11 @@ def suite_runs(label, device, cfg, grid, state, diag, steps):
         g = grid.to(dev, f64)
         carry = init_carry(g, cfg, state.to(dev, f64), diag.to(dev, f64),
                            cfg.config_dt)
-        phys = init_physics_state(nc, nz, dtype=f64, lsm_scheme="noah",
-                                  device=dev)
+        phys = init_physics_state(nc, nz, dtype=f64, device=dev, **init_kw)
         t0 = time.perf_counter()
         outs[where] = run_steps_with_physics(
             g, cfg, carry, phys, coeffs.to(dev, f64), cfg.config_dt, steps,
-            pcfg=pcfg)
+            pcfg=pcfg, gmt_hours=gmt_hours)
         if dev.type == "cuda":
             torch.cuda.synchronize()
         print(f"small f64 {label} on {where}: {steps} steps in "
@@ -552,13 +579,21 @@ def suite_runs(label, device, cfg, grid, state, diag, steps):
 
 
 PHYS_FIELDS = ("tsk", "rainc", "hpbl", "glw", "gsw", "rad_tend", "tslb",
-               "smois")
+               "smois", "qke")
 
 
 def suite_fields(carry, phys):
+    """The state, rainnc, rt_diabatic_tend and the physics state's fields
+    the run carries (the soil with Noah, qke with MYNN); Thompson's rain
+    and ice numbers apart from the species, each at its own scale."""
     out = state_fields(carry)
-    out.update(rainnc=carry.rainnc.cpu().numpy())
-    out.update({k: getattr(phys, k).cpu().numpy() for k in PHYS_FIELDS})
+    sc = out["scalars"]
+    if sc.shape[-1] == 8:
+        out.update(scalars=sc[..., :6], numbers=sc[..., 6:])
+    out.update(rainnc=carry.rainnc.cpu().numpy(),
+               rt_diabatic_tend=carry.rt_diabatic_tend.cpu().numpy())
+    out.update({k: getattr(phys, k).cpu().numpy() for k in PHYS_FIELDS
+                if getattr(phys, k) is not None})
     return out
 
 
@@ -610,6 +645,86 @@ def check_small_sphere_suite(device, mesh8):
                       diag, 3)
     compare_scaled("JW sphere suite + WSM6",
                    {w: suite_fields(*o) for w, o in outs.items()}, PHYS_RTOL)
+
+
+def check_small_convperm(device):
+    """Phase 4: 6 f64 coupled steps of the supercell with eight species,
+    Thompson and the convection_permitting suite from a Noah + MYNN
+    physics state, at MESOREF_GMT, card vs CPU; rain reaches the ground
+    and qke stays finite and >= 0."""
+    outs = suite_runs("supercell convperm + Thompson", device,
+                      *supercell_setup(12, 16, "mp_thompson"), 6,
+                      pcfg="convection_permitting", init_kw=CONVPERM_INIT,
+                      gmt_hours=MESOREF_GMT)
+    fields = {w: suite_fields(*o) for w, o in outs.items()}
+    for where, f in fields.items():
+        require(np.isfinite(f["qke"]).all() and f["qke"].min() >= 0.0,
+                f"qke on {where} not finite or negative")
+        require(f["rainnc"].max() > 0.0, f"no rain on {where}")
+    compare_scaled("supercell convperm + Thompson", fields, PHYS_RTOL)
+
+
+def check_small_kf(device):
+    """Phase 4: 6 f64 coupled steps of the supercell with WSM6 and the
+    driver hook's default PhysicsConfig() (Kain-Fritsch) from a slab
+    physics state, at MESOREF_GMT, card vs CPU."""
+    outs = suite_runs("supercell Kain-Fritsch + WSM6", device,
+                      *supercell_setup(12, 16, "mp_wsm6"), 6, pcfg=None,
+                      init_kw={}, gmt_hours=MESOREF_GMT)
+    compare_scaled("supercell Kain-Fritsch + WSM6",
+                   {w: suite_fields(*o) for w, o in outs.items()}, PHYS_RTOL)
+
+
+def deep_unstable_columns(n, seed=41):
+    """The deep unstable column of tests/test_atm_physics_suite.py:165-203
+    on n columns (numpy, float64): 40 levels to 25 km (the scheme rejects
+    clouds that would leave the lid), a dry adiabat below 800 m, 6.2 K/km
+    to 16 km, then 2 K/km warming; 17 g/kg at the ground. Each column's
+    temperature is shifted by up to +-0.3 K and its moisture scaled by
+    0.97-1.03 from the seed. Returns kf_eta's (th, qv, p, rho, z, dz,
+    exner)."""
+    rng = np.random.default_rng(seed)
+    zc = np.linspace(100.0, 25000.0, 40)
+    zm = 800.0
+    tt = np.where(zc < zm, 301.5 - 9.8e-3 * zc,
+                  np.where(zc < 16000.0,
+                           301.5 - 9.8e-3 * zm - 6.2e-3 * (zc - zm),
+                           301.5 - 9.8e-3 * zm - 6.2e-3 * (16000.0 - zm)
+                           + 2.0e-3 * (zc - 16000.0)))
+    z = np.tile(zc, (n, 1))
+    t = tt[None, :] + rng.uniform(-0.3, 0.3, (n, 1))
+    p = 1.013e5 * np.exp(-z / 7600.0)
+    exner = (p / 1.0e5) ** (287.0 / 1004.5)
+    qv = 0.017 * rng.uniform(0.97, 1.03, (n, 1)) * np.exp(-z / 2500.0)
+    return (t / exner, qv, p, p / (287.0 * t), z,
+            np.tile(np.gradient(zc), (n, 1)), exner)
+
+
+def check_kf_column(device):
+    """Phase 4: kf_eta alone on 24 deep unstable columns (dt = 300 s), f64,
+    card vs CPU: floating outputs at PHYS_RTOL x max, integer and boolean
+    ones exactly; it fires (ainc > 0 and rain) in every column."""
+    from mpas_tpu_torch.cores.atmosphere.physics.kfeta import kf_eta
+    cols = deep_unstable_columns(24)
+    outs = {}
+    for where, dev in (("cpu", torch.device("cpu")), ("cuda", device)):
+        out = kf_eta(*[torch.from_numpy(a).to(dev) for a in cols], 300.0)
+        outs[where] = {k: v.cpu().numpy() for k, v in out.items()}
+        require((outs[where]["ainc"] > 0.0).all()
+                and (outs[where]["raincv_m"] > 0.0).all(),
+                f"kf_eta on {where} did not fire in every deep column")
+    ints = {k for k, v in outs["cpu"].items()
+            if not np.issubdtype(v.dtype, np.floating)}
+    for k in sorted(ints):
+        require(np.array_equal(outs["cuda"][k], outs["cpu"][k]),
+                f"kf_eta {k}: the card's differs from the CPU's")
+    print(f"  kf_eta deep columns: ainc {outs['cpu']['ainc'].min():.4f}-"
+          f"{outs['cpu']['ainc'].max():.4f}, rain "
+          f"{outs['cpu']['raincv_m'].min():.4e}-"
+          f"{outs['cpu']['raincv_m'].max():.4e} m; {sorted(ints)} equal")
+    compare_scaled("kf_eta deep columns",
+                   {w: {k: v for k, v in o.items() if k not in ints}
+                    for w, o in outs.items()}, PHYS_RTOL)
 
 
 def check_small_supercell(device):
@@ -717,47 +832,71 @@ def run_supercell_path(device, card):
     return cfg, grid, carry, counts
 
 
-def run_mesoref_path(device, card):
-    """Phase 5, supercell_2km_mesoref: supercell_2km (bench.py:104-119) with
-    WSM6 and the mesoscale_reference suite in place of Kessler alone, in
-    float32, at MESOREF_GMT, through run_steps_with_physics one step at a
-    time: host setup
-    (grid, seeded six-species state, reconstruction coefficients), copy to
-    the card, init_carry, one warm step (radiation is due in it, timed on
-    its own), MAIN_STEPS timed steps; the launch counters are zeroed just
-    before init_carry and read after every step."""
+def kernel_census(fn):
+    """(fn(), kernels, device busy ms) of one call of fn under
+    torch.profiler: every kernel the call launched and the sum of their
+    device times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    return (out, sum(e.count for e in kern),
+            sum(e.self_device_time_total for e in kern) / 1e3)
+
+
+def run_physics_path(device, card, name, scheme, pcfg, init_kw):
+    """Phase 5, supercell_2km (bench.py:104-119) with `scheme`
+    microphysics and a physics suite (`pcfg`, None for PhysicsConfig())
+    before every dynamics step, in float32, at MESOREF_GMT, through
+    run_steps_with_physics one step at a time: host setup (grid, seeded
+    state, reconstruction coefficients), copy to the card, init_carry, one
+    warm step (radiation is due in it, timed on its own), MAIN_STEPS timed
+    steps; the launch counters are zeroed just before init_carry and read
+    after every step. Then one step under the profiler for the kernels and
+    device busy ms a step. Gates: 12 K1 and K2_PER_STEP[name] K2 every
+    step, finite fields, dry mass, species >= 0. Returns a dict of the run
+    (cfg, grid, carry, phys, coeffs, pcfg, counts, step)."""
     from mpas_tpu_torch import kernels
     from mpas_tpu_torch.cores.atmosphere.hooks import run_steps_with_physics
     from mpas_tpu_torch.cores.atmosphere.moisture import (RHO_WATER,
                                                           masses)
     from mpas_tpu_torch.cores.atmosphere.physics.manager import (
-        SCHEME_FIELDS, init_physics_state)
+        SCHEME_FIELDS, PhysicsConfig, init_physics_state)
     from mpas_tpu_torch.cores.atmosphere.time_integration import init_carry
     from mpas_tpu_torch.ops.reconstruct import build_reconstruct_coeffs
-    name, f32 = "supercell_2km_mesoref", torch.float32
+    f32 = torch.float32
     t0 = time.perf_counter()
-    cfg, grid, state, diag = supercell_setup(96, 40, "mp_wsm6")
+    cfg, grid, state, diag = supercell_setup(96, 40, scheme)
     coeffs = build_reconstruct_coeffs(grid.mesh)
-    pcfg = mesoref_config()
     host_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     grid, state, diag = (grid.to(device, f32), state.to(device, f32),
                          diag.to(device, f32))
     coeffs = torch.from_numpy(coeffs).to(device, f32)
     nc, nz = grid.mesh.nCells, grid.vert.nz
-    phys = init_physics_state(nc, nz, dtype=f32, lsm_scheme="noah",
-                              device=device)
+    phys = init_physics_state(nc, nz, dtype=f32, device=device, **init_kw)
     torch.cuda.synchronize()
     copy_s = time.perf_counter() - t0
-    schemes = ", ".join(getattr(pcfg, k) for k in SCHEME_FIELDS)
-    print(f"{name} setup: {nc} cells x {nz} levels, "
-          f"{state.scalars.shape[-1]} scalars, suite {schemes}; host build "
-          f"{host_s:.2f} s (reconstruction coefficients included), copy to "
-          f"card {copy_s:.2f} s")
-    require((nc, nz, state.scalars.shape[-1]) == (9216, 40, 6),
+    nsc = state.scalars.shape[-1]
+    schemes = ", ".join(getattr(pcfg or PhysicsConfig(), k)
+                        for k in SCHEME_FIELDS)
+    print(f"{name} setup: {nc} cells x {nz} levels, {nsc} scalars, "
+          f"{scheme}, physics {schemes}; host build {host_s:.2f} s "
+          f"(reconstruction coefficients included), copy to card "
+          f"{copy_s:.2f} s")
+    require((nc, nz, nsc) == (9216, 40, 8 if scheme == "mp_thompson" else 6),
             f"{name} built the wrong size")
 
     dt = cfg.config_dt
+
+    def step(carry, phys):
+        return run_steps_with_physics(grid, cfg, carry, phys, coeffs, dt, 1,
+                                      pcfg=pcfg, gmt_hours=MESOREF_GMT)
     per_step = {"acoustic_cell_update": K1_PER_STEP,
                 "tinydot": K2_PER_STEP[name]}
     kernels.reset_launch_counts()
@@ -766,9 +905,7 @@ def run_mesoref_path(device, card):
     seen = [dict(kernels.launch_counts)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    carry, phys = run_steps_with_physics(grid, cfg, carry, phys, coeffs, dt,
-                                         1, pcfg=pcfg,
-                                         gmt_hours=MESOREF_GMT)  # warm step
+    carry, phys = step(carry, phys)                          # warm step
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     seen.append(dict(kernels.launch_counts))
@@ -776,9 +913,7 @@ def run_mesoref_path(device, card):
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     for _ in range(MAIN_STEPS):
-        carry, phys = run_steps_with_physics(grid, cfg, carry, phys, coeffs,
-                                             dt, 1, pcfg=pcfg,
-                                             gmt_hours=MESOREF_GMT)
+        carry, phys = step(carry, phys)
         seen.append(dict(kernels.launch_counts))
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
@@ -802,7 +937,7 @@ def run_mesoref_path(device, card):
     area = grid.mesh.areaCell.double()
     rain_kg = [float((r.double() * RHO_WATER * area).sum())
                for r in (carry.rainnc, phys.rainc)]
-    species = ("qv", "qc", "qr", "qi", "qs", "qg")
+    species = ("qv", "qc", "qr", "qi", "qs", "qg", "nr", "ni")[:nsc]
     ms = 1e3 * elapsed / MAIN_STEPS
     print(f"{name} float32 on {card}: {MAIN_STEPS} steps in {elapsed:.3f} s "
           f"= {ms:.2f} ms/step, {nc * MAIN_STEPS / elapsed:.1f} cell-column "
@@ -821,12 +956,84 @@ def run_mesoref_path(device, card):
           f"min glw after the warm step {glw_min:.3f} W/m2")
     require(drift <= 1e-5, f"{name}: dry mass not conserved: {drift:.3e}")
     require(float(sc[..., :6].min()) >= 0.0, f"{name}: a negative species")
+    _, n_kern, busy = kernel_census(lambda: step(carry, phys))
+    print(f"{name} one profiled step on {card}: {n_kern} kernels, device "
+          f"busy {busy:.3f} ms ({100.0 * (1.0 - busy / ms):.1f}% idle "
+          f"against the timed {ms:.2f} ms/step)")
+    return dict(cfg=cfg, grid=grid, carry=carry, phys=phys, coeffs=coeffs,
+                pcfg=pcfg, counts=counts, step=step, glw_min=glw_min)
+
+
+def run_mesoref_path(device, card):
+    """Phase 5, supercell_2km_mesoref: supercell_2km with WSM6 and the
+    mesoscale_reference suite in place of Kessler alone; rain reaches the
+    ground, the skin temperature moves and the warm step's radiation
+    leaves downward longwave."""
+    name = "supercell_2km_mesoref"
+    run = run_physics_path(device, card, name, "mp_wsm6",
+                           suite_config("mesoscale_reference"),
+                           MESOREF_INIT)
+    carry, phys = run["carry"], run["phys"]
     require(float(carry.rainnc.max()) > 0.0, f"{name}: no rain reached "
             "the ground")
     require(float(phys.tsk.std()) > 0.0, f"{name}: tsk did not move")
-    require(glw_min > 0.0, f"{name}: no downward longwave after the "
+    require(run["glw_min"] > 0.0, f"{name}: no downward longwave after the "
             "radiation call")
-    return cfg, grid, carry, phys, coeffs, pcfg, counts
+    return run
+
+
+def run_convperm_path(device, card):
+    """Phase 5, supercell_2km_convperm: supercell_2km with Thompson, eight
+    species and the convection_permitting suite from a Noah + MYNN
+    physics state; nr and ni stay in [1e-2, 1e8], qke finite and >= 0,
+    rain reaches the ground."""
+    name = "supercell_2km_convperm"
+    run = run_physics_path(device, card, name, "mp_thompson",
+                           suite_config("convection_permitting"),
+                           CONVPERM_INIT)
+    carry, phys = run["carry"], run["phys"]
+    num = carry.state.scalars[..., 6:]
+    print(f"{name}: nr, ni in [{float(num.min()):.4e}, "
+          f"{float(num.max()):.4e}] /kg; qke in [{float(phys.qke.min()):.4e},"
+          f" {float(phys.qke.max()):.4e}] m2/s2; max rainnc "
+          f"{float(carry.rainnc.max()):.4e} m, max rainc "
+          f"{float(phys.rainc.max()):.4e} m")
+    # the bounds as the state's float32 holds them
+    lo, hi = (float(torch.tensor(b, dtype=num.dtype)) for b in (1e-2, 1e8))
+    require(float(num.min()) >= lo and float(num.max()) <= hi,
+            f"{name}: nr or ni left [1e-2, 1e8]")
+    require(bool(torch.isfinite(phys.qke).all())
+            and float(phys.qke.min()) >= 0.0, f"{name}: qke")
+    require(float(carry.rainnc.max()) > 0.0, f"{name}: no rain reached "
+            "the ground")
+    return run
+
+
+def run_kf_path(device, card):
+    """Phase 5, supercell_2km_kf: supercell_2km_mesoref's grid and start
+    (WSM6, six species) with the driver hook's default PhysicsConfig()
+    (Kain-Fritsch, YSU, MM5 surface layer, slab LSM, broadband radiation)
+    from a slab physics state. Prints the columns Kain-Fritsch activates
+    on the state after the timed steps, the largest rainc, and kf_eta's
+    kernels and device ms a call (one call on inputs derived from that
+    state as physics_step derives them, profiled alone)."""
+    from mpas_tpu_torch.cores.atmosphere.physics import kfeta
+    from mpas_tpu_torch.tools.op_count import kf_eta_inputs
+    name = "supercell_2km_kf"
+    run = run_physics_path(device, card, name, "mp_wsm6", None, {})
+    carry = run["carry"]
+    args, kwargs = kf_eta_inputs(run["grid"], carry.state, carry.diag,
+                                 run["coeffs"])
+    out, n_kern, busy = kernel_census(
+        lambda: kfeta.kf_eta(*args, run["cfg"].config_dt, **kwargs))
+    active = int((out["ainc"] > 0.0).sum())
+    print(f"{name}: Kain-Fritsch active in {active} of "
+          f"{out['ainc'].shape[0]} columns ({int(out['ishall'].sum())} "
+          f"shallow) on the state after the timed steps; max rainc "
+          f"{float(run['phys'].rainc.max()):.4e} m after "
+          f"{MAIN_STEPS + 1} steps; kf_eta alone on {card}: {n_kern} "
+          f"kernels, device busy {busy:.3f} ms a call")
+    return run
 
 
 def run_sw_path(device, card, mesh):
@@ -1465,34 +1672,46 @@ def profile_srk3(name, cfg, grid, carry, out_dir):
     profile_steps(name, step, out_dir, ti, PROFILE_REGIONS)
 
 
-def profile_mesoref(cfg, grid, carry, phys, coeffs, pcfg, out_dir):
-    """--profile of supercell_2km_mesoref: spans around physics_step, its
-    schemes, WSM6 and the dycore calls."""
+def profile_physics(name, run, out_dir):
+    """--profile of a suite path: spans around physics_step, its schemes,
+    the microphysics and the dycore calls; then physics_step alone."""
     from mpas_tpu_torch.cores.atmosphere import time_integration as ti
-    from mpas_tpu_torch.cores.atmosphere.hooks import run_steps_with_physics
-    from mpas_tpu_torch.cores.atmosphere.physics import (cldfra3, gwdo,
-                                                         manager, rrtmg,
-                                                         tiedtke, ysu)
-    box = [(carry, phys)]
+    from mpas_tpu_torch.cores.atmosphere.physics import (
+        cldfra3, convection, driver, gf, gwdo, manager, mynn, mynn_sfc,
+        radiation, rrtmg, sfclay, tiedtke, ysu)
+    schemes = {
+        "supercell_2km_mesoref": (
+            (rrtmg, ("rrtmg_lw", "rrtmg_sw")), (cldfra3, ("cal_cldfra3",)),
+            (gwdo, ("gwdo",)), (tiedtke, ("tiedtke",)), (ysu, ("ysu",))),
+        "supercell_2km_convperm": (
+            (rrtmg, ("rrtmg_lw", "rrtmg_sw")), (cldfra3, ("cal_cldfra3",)),
+            (gwdo, ("gwdo",)), (gf, ("gf_convection",)), (mynn, ("mynn",)),
+            (mynn_sfc, ("mynn_sfclay",)), (driver, ("thompson",))),
+        "supercell_2km_kf": (
+            (radiation, ("radiation_lw", "radiation_sw")),
+            (sfclay, ("sfclay",)), (ysu, ("ysu",)),
+            (convection, ("kf_eta",)))}[name]
+    micro = ("microphysics_step_thompson",) \
+        if run["cfg"].config_microp_scheme == "mp_thompson" \
+        else ("microphysics_step_wsm6",)
+    cfg, grid, coeffs, pcfg = (run[k] for k in ("cfg", "grid", "coeffs",
+                                                "pcfg"))
+    box = [(run["carry"], run["phys"])]
 
     def step():
-        box[0] = run_steps_with_physics(grid, cfg, *box[0], coeffs,
-                                        cfg.config_dt, 1, pcfg=pcfg,
-                                        gmt_hours=MESOREF_GMT)
-    schemes = ((rrtmg, ("rrtmg_lw", "rrtmg_sw")), (cldfra3, ("cal_cldfra3",)),
-               (gwdo, ("gwdo",)), (tiedtke, ("tiedtke",)), (ysu, ("ysu",)))
-    profile_steps("supercell_2km_mesoref", step, out_dir, ti,
-                  PROFILE_REGIONS + ("microphysics_step_wsm6",),
+        box[0] = run["step"](*box[0])
+    profile_steps(name, step, out_dir, ti, PROFILE_REGIONS + micro,
                   more=((manager, ("physics_step",)),) + schemes)
 
     def physics_only():
         c, p = box[0]
-        manager.physics_step(grid, pcfg, grid.mesh, coeffs, c.state, c.diag,
-                             p, cfg.config_dt, gmt_hours=MESOREF_GMT)
+        manager.physics_step(grid, pcfg or manager.PhysicsConfig(),
+                             grid.mesh, coeffs, c.state, c.diag, p,
+                             cfg.config_dt, gmt_hours=MESOREF_GMT)
     # physics_step alone: its kernels a step (the count a CUDA graph of it
     # would replay)
-    profile_steps("supercell_2km_mesoref_physics_step", physics_only,
-                  out_dir, manager, ("physics_step",), more=schemes)
+    profile_steps(f"{name}_physics_step", physics_only, out_dir, manager,
+                  ("physics_step",), more=schemes)
 
 
 def timed(label, fn, *args):
@@ -1508,7 +1727,8 @@ def main():
     parser.add_argument("--profile", metavar="DIR",
                         help="also profile 3 steps of jw_120km, "
                              "sw_tc5_120km, supercell_2km, "
-                             "supercell_2km_mesoref, jw_var60_15, "
+                             "supercell_2km_mesoref, supercell_2km_convperm, "
+                             "supercell_2km_kf, jw_var60_15, "
                              "ocean_channel_10km and the two 4-way paths; "
                              "the kernel tables go to "
                              "DIR/profile_<path>.txt")
@@ -1542,6 +1762,10 @@ def main():
     timed("small f64 supercell suite + WSM6", check_small_suite, device)
     timed("small f64 JW sphere suite + WSM6", check_small_sphere_suite,
           device, mesh8)
+    timed("small f64 supercell convperm + Thompson", check_small_convperm,
+          device)
+    timed("small f64 supercell Kain-Fritsch + WSM6", check_small_kf, device)
+    timed("small f64 kf_eta deep columns", check_kf_column, device)
     timed("small f64 ocean", check_small_ocean, device)
     timed("small f64 sharded, loopback", check_small_sharded, device, mesh8)
     timed("process group on NCCL", check_nccl_exchange, device, mesh8)
@@ -1587,11 +1811,14 @@ def main():
     if args.profile:
         profile_srk3("supercell_2km", cfg, grid, carry, args.profile)
     del grid, carry
-    cfg, grid, carry, phys, coeffs, pcfg, counts["supercell_2km_mesoref"] = \
-        timed("supercell_2km_mesoref", run_mesoref_path, device, card)
-    if args.profile:
-        profile_mesoref(cfg, grid, carry, phys, coeffs, pcfg, args.profile)
-    del grid, carry, phys, coeffs
+    for name, path in (("supercell_2km_mesoref", run_mesoref_path),
+                       ("supercell_2km_convperm", run_convperm_path),
+                       ("supercell_2km_kf", run_kf_path)):
+        run = timed(name, path, device, card)
+        counts[name] = run["counts"]
+        if args.profile:
+            profile_physics(name, run, args.profile)
+        del run
     cfg, grid, carry, counts["jw_var60_15"] = timed(
         "jw_var60_15", run_var_path, device, card)
     if args.profile:

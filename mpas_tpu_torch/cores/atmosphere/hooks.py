@@ -18,8 +18,10 @@ from mpas_tpu_torch.cores.atmosphere.physics import manager
 def run_steps_with_physics(grid, cfg, carry, phys, recon, dt, n, pcfg=None,
                            gmt_hours=12.0):
     """Advance `n` timesteps, each physics_step then srk3_step. pcfg: the
-    PhysicsConfig, None for PhysicsConfig() as in the reference (pass
-    resolve_suite(...) of a suite to run that suite); recon: the
+    PhysicsConfig; None runs PhysicsConfig() as the reference's hook does
+    (Kain-Fritsch, YSU, the MM5 surface layer, the slab LSM and broadband
+    radiation; pass resolve_suite(...) of a suite to run that suite, and
+    give phys the Noah soil or the MYNN qke the suite needs); recon: the
     reconstruction coefficients as a tensor on the carry's device;
     gmt_hours: the hour of the solar geometry physics_step sees (the
     reference's default is noon; the day is physics_step's default).

@@ -1,5 +1,5 @@
 """Microphysics coupling driver: dycore variables <-> column scheme (port of
-mpas_tpu/cores/atmosphere/physics/driver.py, the Kessler and WSM6 paths).
+mpas_tpu/cores/atmosphere/physics/driver.py: Kessler, WSM6 and Thompson).
 
 ref: src/core_atmosphere/physics/mpas_atmphys_driver_microphysics.F
 (driver_microphysics, called inside atm_srk3 after scalar transport) and
@@ -8,7 +8,8 @@ mpas_atmphys_interface.F:536-560 (microphysics_from_MPAS) / :695-717
 
 Scalar layout (ref: Registry.xml index_qv/index_qc/index_qr/...):
 scalars[..., 0] = qv, [..., 1] = qc, [..., 2] = qr, and for the
-six-class schemes [..., 3] = qi, [..., 4] = qs, [..., 5] = qg.
+six-class schemes [..., 3] = qi, [..., 4] = qs, [..., 5] = qg; Thompson
+adds the rain and ice numbers [..., 6] = nr, [..., 7] = ni.
 """
 
 from __future__ import annotations
@@ -17,10 +18,12 @@ import torch
 
 from mpas_tpu_torch.constants import cp, p0, rgas, rvord
 from mpas_tpu_torch.cores.atmosphere.physics.kessler import kessler
+from mpas_tpu_torch.cores.atmosphere.physics.thompson import thompson
 from mpas_tpu_torch.cores.atmosphere.physics.wsm6 import wsm6
 
 IDX_QV, IDX_QC, IDX_QR = 0, 1, 2
 IDX_QI, IDX_QS, IDX_QG = 3, 4, 5
+IDX_NR, IDX_NI = 6, 7        # Thompson number concentrations
 RCV = rgas / (cp - rgas)
 
 
@@ -63,6 +66,23 @@ def microphysics_step_wsm6(grid, theta_m, rho_zz, scalars, exner, dt):
     p = p0 * exner ** (cp / rgas)
 
     th, *q, rain = wsm6(th, *q, rho_dry, exner, p, dz, dt)
+    return _to_mpas(grid, theta_m, rho_zz, scalars, th, q, rain, dt)
+
+
+def microphysics_step_thompson(grid, theta_m, rho_zz, scalars, exner, dt):
+    """Apply Thompson partially two-moment microphysics (same contract as
+    microphysics_step; ref: driver_microphysics dispatch on
+    config_microp_scheme='mp_thompson'). Requires scalars
+    (qv, qc, qr, qi, qs, qg, nr, ni); the numbers enter unclamped."""
+    q = [torch.clamp(scalars[..., i], min=0.0)
+         for i in (IDX_QV, IDX_QC, IDX_QR, IDX_QI, IDX_QS, IDX_QG)]
+    n = [scalars[..., IDX_NR], scalars[..., IDX_NI]]
+    rho_dry = grid.zz * rho_zz
+    th = theta_m / (1.0 + rvord * q[0])
+    dz = grid.zgrid[:, 1:] - grid.zgrid[:, :-1]
+    p = p0 * exner ** (cp / rgas)
+
+    th, *q, rain = thompson(th, *q, *n, rho_dry, exner, p, dz, dt)
     return _to_mpas(grid, theta_m, rho_zz, scalars, th, q, rain, dt)
 
 

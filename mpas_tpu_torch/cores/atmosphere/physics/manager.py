@@ -18,8 +18,10 @@ wind tendencies return to the edges by projecting the two adjacent cells'
 
 Ported: the mesoscale_reference suite (WSM6 in the dycore, new Tiedtke,
 YSU, GWDO, RRTMG-class k-distribution radiation, cldfra3, the MM5 surface
-layer, Noah) and the broadband radiation and slab LSM branches. A branch
-whose scheme is not ported raises NotImplementedError naming it.
+layer, Noah), the convection_permitting suite (Thompson in the dycore,
+Grell-Freitas, the MYNN PBL and surface layer, with the same radiation,
+cldfra3, GWDO and Noah), Kain-Fritsch, and the broadband radiation and
+slab LSM branches. CAM radiation raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -32,8 +34,10 @@ import torch
 
 from mpas_tpu_torch.constants import cp, p0, rgas, rvord
 from mpas_tpu_torch.containers import resolve_device, to_device
-from mpas_tpu_torch.cores.atmosphere.physics import (cldfra3, gwdo, lsm,
-                                                     noah, radiation, rrtmg,
+from mpas_tpu_torch.cores.atmosphere.physics import (cldfra3, convection,
+                                                     gf, gwdo, lsm, mynn,
+                                                     mynn_sfc, noah,
+                                                     radiation, rrtmg,
                                                      sfclay, tiedtke, ysu)
 from mpas_tpu_torch.ops import reconstruct as recon
 
@@ -102,27 +106,12 @@ def resolve_suite(cfg: PhysicsConfig) -> PhysicsConfig:
 
 
 def _check_ported(cfg: PhysicsConfig):
-    """Refuse the branches of physics_step whose scheme is not ported; the
-    convection branch runs Kain-Fritsch for every scheme other than
-    tiedtke and grell_freitas, as the reference's does."""
-    def refuse(field, scheme, module):
-        raise NotImplementedError(
-            f"physics_step: {field}={getattr(cfg, field)!r} runs {scheme}, "
-            f"which is not ported (it waits for {module})")
+    """Refuse the one branch of physics_step whose scheme is not ported."""
     if cfg.config_radiation_scheme == "cam":
-        refuse("config_radiation_scheme", "CAM radiation",
-               "physics/cam_radiation.py")
-    if cfg.config_sfclay_scheme == "mynn":
-        refuse("config_sfclay_scheme", "the MYNN surface layer",
-               "physics/mynn_sfc.py")
-    if cfg.config_pbl_scheme == "mynn":
-        refuse("config_pbl_scheme", "the MYNN PBL", "physics/mynn.py")
-    if cfg.config_conv_scheme == "grell_freitas":
-        refuse("config_conv_scheme", "Grell-Freitas convection",
-               "physics/gf.py")
-    if cfg.config_conv_scheme != "tiedtke":
-        refuse("config_conv_scheme", "Kain-Fritsch convection",
-               "physics/convection.py and physics/kfeta.py")
+        raise NotImplementedError(
+            "physics_step: config_radiation_scheme='cam' runs CAM "
+            "radiation, which is not ported (it waits for "
+            "physics/cam_radiation.py)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,6 +196,8 @@ def physics_step(grid, cfg: PhysicsConfig, mesh, recon_coeffs,
     dz = grid.zgrid[:, 1:] - grid.zgrid[:, :-1]
     z_mid = 0.5 * (grid.zgrid[:, 1:] + grid.zgrid[:, :-1]) \
         - grid.zgrid[:, :1]
+    # the cell's equivalent diameter, the grid spacing the schemes see
+    dx_cell = 2.0 * torch.sqrt(m.areaCell / math.pi)
 
     # cell-centred winds (ref: uReconstruct{Zonal,Meridional})
     _vx, _vy, _vz, u_c, v_c = recon.reconstruct(m, recon_coeffs, state.u)
@@ -220,9 +211,8 @@ def physics_step(grid, cfg: PhysicsConfig, mesh, recon_coeffs,
         qs_s = torch.clamp(state.scalars[..., 4], min=0.0) if nsc > 4 \
             else torch.zeros_like(qv)
         xland = torch.ones_like(phys.tsk)
-        gridkm = 2.0 * torch.sqrt(m.areaCell / math.pi) * 1e-3
         _cldfra, qc_rad, qi_rad = cldfra3.cal_cldfra3(
-            qv, qc, qi_s, qs_s, p, t, rho, dz, xland, gridkm)
+            qv, qc, qi_s, qs_s, p, t, rho, dz, xland, dx_cell * 1e-3)
         qc = qc_rad + qi_rad      # radiation sees the seeded condensate
 
     # --- radiation on its alarm (held constant in between) ---
@@ -253,9 +243,15 @@ def physics_step(grid, cfg: PhysicsConfig, mesh, recon_coeffs,
         qsfc = noah.noah_surface_moisture(phys.tsk, p[:, 0], beta0)
     else:
         qsfc = lsm.surface_moisture(phys.tsk, p[:, 0])
-    sfc = sfclay.sfclay(u_c[:, 0], v_c[:, 0], t_rad[:, 0] / exner[:, 0],
-                        qv[:, 0], p[:, 0], rho[:, 0], z_mid[:, 0], phys.tsk,
-                        qsfc, cfg.roughness_m)
+    if cfg.config_sfclay_scheme == "mynn":
+        sfc = mynn_sfc.mynn_sfclay(
+            u_c[:, 0], v_c[:, 0], t_rad[:, 0] / exner[:, 0], qv[:, 0],
+            p[:, 0], rho[:, 0], z_mid[:, 0], phys.tsk, qsfc,
+            z0_land=cfg.roughness_m)
+    else:
+        sfc = sfclay.sfclay(u_c[:, 0], v_c[:, 0], t_rad[:, 0] / exner[:, 0],
+                            qv[:, 0], p[:, 0], rho[:, 0], z_mid[:, 0],
+                            phys.tsk, qsfc, cfg.roughness_m)
 
     # --- LSM: advance the skin temperature (ref: driver_lsm; the
     # seaice/glacial variants dispatch per point as
@@ -290,8 +286,14 @@ def physics_step(grid, cfg: PhysicsConfig, mesh, recon_coeffs,
                                    sfc["hfx"], sfc["lh"], dt)
 
     # --- PBL (ref: driver_pbl) ---
-    u_pbl, v_pbl, th_pbl, qv_pbl, hpbl = ysu.ysu(
-        u_c, v_c, t_rad / exner, qv, rho, z_mid, dz, sfc, dt)
+    th_in = t_rad / exner
+    if cfg.config_pbl_scheme == "mynn":
+        u_pbl, v_pbl, th_pbl, qv_pbl, hpbl, qke_new = mynn.mynn(
+            u_c, v_c, th_in, qv, rho, z_mid, dz, sfc, phys.qke, dt)
+        phys = dataclasses.replace(phys, qke=qke_new)
+    else:
+        u_pbl, v_pbl, th_pbl, qv_pbl, hpbl = ysu.ysu(
+            u_c, v_c, th_in, qv, rho, z_mid, dz, sfc, dt)
 
     # --- GWDO (ref: driver_gwdo -> module_bl_gwdo.F gwdo2d) ---
     if cfg.config_gwdo_scheme == "on":
@@ -310,22 +312,40 @@ def physics_step(grid, cfg: PhysicsConfig, mesh, recon_coeffs,
             oc1 = ones
             oa4 = torch.zeros_like(ones)[:, None].expand(-1, 4)
             ol4 = torch.full_like(ones, 0.5)[:, None].expand(-1, 4)
-        dx_cell = 2.0 * torch.sqrt(m.areaCell / math.pi)
         dudt, dvdt, _dusfc, _dvsfc = gwdo.gwdo(
             u_pbl, v_pbl, t_rad, qv_pbl, p, z_mid, dz,
             var2d, oc1, oa4, ol4, dx_cell, dt)
         u_pbl = u_pbl + dt * dudt
         v_pbl = v_pbl + dt * dvdt
 
-    # --- convection (ref: driver_convection; _check_ported leaves only
-    # the Tiedtke branch) ---
-    th_cu, qv_cu, rain_c, _cape = tiedtke.tiedtke(
-        th_pbl, qv_pbl, p, rho, z_mid, dz, exner, dt)
+    # --- convection (ref: driver_convection; every scheme other than
+    # tiedtke and grell_freitas runs Kain-Fritsch, as the reference's) ---
+    qc_detr = None
+    if cfg.config_conv_scheme == "tiedtke":
+        th_cu, qv_cu, rain_c, _cape = tiedtke.tiedtke(
+            th_pbl, qv_pbl, p, rho, z_mid, dz, exner, dt)
+    elif cfg.config_conv_scheme == "grell_freitas":
+        th_cu, qv_cu, qc_detr, rain_c, _cape = gf.gf_convection(
+            th_pbl, qv_pbl, p, rho, z_mid, dz, exner, dt, dx=dx_cell)
+    else:
+        # grid-scale w at layer midpoints feeds the KF trigger (ref:
+        # W0AVG, module_cu_kfeta.F:740-760); dx sets the 25-km-equivalent
+        # w scaling and the advective timescale
+        w_mid = 0.5 * (state.w[:, 1:] + state.w[:, :-1])
+        kf = convection.kf_convection_full(
+            th_pbl, qv_pbl, p, rho, z_mid, dz, exner, dt,
+            w0avg=w_mid, u=u_c, v=v_c, dx=dx_cell)
+        th_cu, qv_cu, rain_c = kf["th"], kf["qv"], kf["raincv_m"]
+        qc_detr = kf["qc_detr"]
 
     # --- couple back to the dycore variables ---
     theta_m_new = th_cu * (1.0 + rvord * qv_cu)
-    scalars_new = torch.cat([qv_cu[..., None], state.scalars[..., 1:]],
-                            dim=-1)
+    rest = state.scalars[..., 1:]
+    if qc_detr is not None and nsc > 1:
+        # detrained non-precipitated condensate goes to the cloud water
+        rest = torch.cat([(rest[..., 0] + qc_detr)[..., None],
+                          rest[..., 1:]], dim=-1)
+    scalars_new = torch.cat([qv_cu[..., None], rest], dim=-1)
     du_e = _edge_wind_tendency(m, u_pbl - u_c, v_pbl - v_c)
     u_new = (state.u + du_e) * (1.0 - m.boundaryEdge)[:, None]
 

@@ -1,5 +1,5 @@
 """Split-explicit RK3 time stepping of the nonhydrostatic core, dry or
-moist with Kessler or WSM6 microphysics (port of
+moist with Kessler, WSM6 or Thompson microphysics (port of
 mpas_tpu/cores/atmosphere/time_integration.py).
 
 ref: atm_srk3, src/core_atmosphere/dynamics/mpas_atm_time_integration.F:142.
@@ -31,7 +31,7 @@ from mpas_tpu_torch.cores.atmosphere.nhyd import (AcousticVars, AtmSolveDiag,
                                                   solve_diagnostics,
                                                   vert_imp_coefs)
 from mpas_tpu_torch.cores.atmosphere.physics.driver import (
-    microphysics_step, microphysics_step_wsm6)
+    microphysics_step, microphysics_step_thompson, microphysics_step_wsm6)
 from mpas_tpu_torch.cores.atmosphere.setup import AtmGrid
 from mpas_tpu_torch.cores.atmosphere.state import AtmDiag, AtmState
 from mpas_tpu_torch.cores.atmosphere.transport import (advance_scalars,
@@ -92,8 +92,7 @@ NO_XCH = _NoExchange()
 
 
 def _check_supported(cfg: AtmConfig, state: AtmState):
-    """The reference's scheme and scalar-count checks (:89-106); Thompson
-    is not ported."""
+    """The reference's scheme and scalar-count checks (:89-106)."""
     scheme = cfg.config_microp_scheme
     nsc = state.scalars.shape[-1]
     if scheme not in ("off", "mp_kessler", "mp_wsm6", "mp_thompson"):
@@ -110,11 +109,6 @@ def _check_supported(cfg: AtmConfig, state: AtmState):
         raise ValueError(
             "mp_thompson requires scalars (qv,qc,qr,qi,qs,qg,nr,ni); "
             f"got {nsc} scalar(s)")
-    if scheme == "mp_thompson":
-        raise NotImplementedError(
-            "config_microp_scheme='mp_thompson' is not ported (it waits "
-            "for physics/thompson.py); 'off', 'mp_kessler' and 'mp_wsm6' "
-            "are")
 
 
 def srk3_step(grid: AtmGrid, cfg: AtmConfig, carry: AtmCarry, dt,
@@ -280,9 +274,11 @@ def srk3_step(grid: AtmGrid, cfg: AtmConfig, carry: AtmCarry, dt,
     # tendency feeds the next step's dynamics (ref: atm_srk3 :1654
     # driver_microphysics)
     rt_diab_out, rainnc = carry.rt_diabatic_tend, carry.rainnc
-    if cfg.config_microp_scheme in ("mp_kessler", "mp_wsm6"):
-        mp = microphysics_step if cfg.config_microp_scheme == "mp_kessler" \
-            else microphysics_step_wsm6
+    mp = {"mp_kessler": microphysics_step,
+          "mp_wsm6": microphysics_step_wsm6,
+          "mp_thompson": microphysics_step_thompson}.get(
+        cfg.config_microp_scheme)
+    if mp is not None:
         (th2, scalars, rtheta_p, exner, pressure_p, rt_diab_out,
          rain) = mp(grid, th2, rho2, scalars, exner, dt)
         th2 = xch.cell(th2)

@@ -1,0 +1,129 @@
+"""Count the torch operations of the physics on the supercell.
+
+    python -m mpas_tpu_torch.tools.op_count [--n 12] [--nz 40] [--device cpu]
+
+For kf_eta and for one physics_step under each suite (PhysicsConfig(),
+mesoscale_reference, convection_permitting) on the n x n, nz-level
+supercell in float64: the number of aten calls that torch.profiler
+records, less the view and shape calls (which launch nothing). Each
+counted call launches about one kernel on a card, so a count taken on the
+CPU predicts a card's kernels a step before a card run; it is a count,
+not a device number. It does not depend on n. The device defaults to
+cuda:0.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import math
+
+import torch
+
+from mpas_tpu_torch.constants import cp, p0, rgas, rvord
+from mpas_tpu_torch.containers import resolve_device
+from mpas_tpu_torch.cores.atmosphere.config import AtmConfig
+from mpas_tpu_torch.cores.atmosphere.init_supercell import init_supercell
+from mpas_tpu_torch.cores.atmosphere.moisture import seeded_moisture
+from mpas_tpu_torch.cores.atmosphere.physics import kfeta, manager
+from mpas_tpu_torch.cores.atmosphere.time_integration import init_carry
+from mpas_tpu_torch.mesh.planar import planar_hex_mesh
+from mpas_tpu_torch.ops import reconstruct as recon
+
+# aten calls that only view, reshape or query: no kernel
+NO_KERNEL = frozenset(
+    "aten::" + k for k in (
+        "view", "reshape", "expand", "select", "slice", "unsqueeze",
+        "squeeze", "as_strided", "t", "transpose", "permute", "detach",
+        "alias", "_unsafe_view", "expand_as", "empty", "empty_like",
+        "resize_", "lift_fresh", "empty_strided", "result_type", "item",
+        "_local_scalar_dense", "is_nonzero", "contiguous", "unbind",
+        "split", "narrow", "diff"))
+
+
+def count_ops(fn) -> int:
+    """aten calls of one call of fn that launch a kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return sum(e.count for e in prof.key_averages()
+               if e.key.startswith("aten::") and e.key not in NO_KERNEL)
+
+
+def kf_eta_inputs(grid, state, diag, coeffs):
+    """(args, kwargs) of kf_eta as physics_step derives them from the
+    dycore state: th, qv, p, rho, z_mid, dz, exner, then w0avg (w at the
+    layer midpoints), the cell winds and the cell's equivalent diameter.
+    physics_step hands kf_eta th, qv and winds after radiation and the
+    PBL; here they are the state's own."""
+    m = grid.mesh
+    qv = torch.clamp(state.scalars[..., 0], min=0.0)
+    exner = diag.exner
+    zg = grid.zgrid
+    _vx, _vy, _vz, u_c, v_c = recon.reconstruct(m, coeffs, state.u)
+    args = (state.theta_m / (1.0 + rvord * qv), qv,
+            p0 * exner ** (cp / rgas), grid.zz * state.rho_zz,
+            0.5 * (zg[:, 1:] + zg[:, :-1]) - zg[:, :1], zg[:, 1:] - zg[:, :-1],
+            exner)
+    kwargs = dict(w0avg=0.5 * (state.w[:, 1:] + state.w[:, :-1]),
+                  u=u_c, v=v_c, dx=2.0 * torch.sqrt(m.areaCell / math.pi))
+    return args, kwargs
+
+
+def suites():
+    """(name, PhysicsConfig, init_physics_state kwargs) of each suite."""
+    def resolved(suite):
+        return manager.resolve_suite(manager.PhysicsConfig(
+            config_physics_suite=suite,
+            **{k: "suite" for k in manager.SCHEME_FIELDS}))
+    return (("PhysicsConfig() (Kain-Fritsch)", manager.PhysicsConfig(), {}),
+            ("mesoscale_reference", resolved("mesoscale_reference"),
+             dict(lsm_scheme="noah")),
+            ("convection_permitting", resolved("convection_permitting"),
+             dict(lsm_scheme="noah", pbl_scheme="mynn")))
+
+
+def run(n=12, nz=40, device=None):
+    """{label: op count} on the n x n, nz-level supercell (six species)."""
+    device, dtype = resolve_device(device), torch.float64
+    cfg = AtmConfig(config_dt=12.0, config_nvertlevels=nz,
+                    config_len_disp=2000.0, config_xnutr=0.0,
+                    config_microp_scheme="mp_wsm6", config_monotonic=True)
+    grid, state, diag = init_supercell(planar_hex_mesh(n, n, 2000.0), cfg,
+                                       case=5)
+    sc = seeded_moisture(grid.mesh, state.scalars, seed=7)
+    state = dataclasses.replace(state, scalars=torch.cat(
+        [sc, torch.zeros_like(sc)], dim=-1))
+    coeffs = torch.from_numpy(recon.build_reconstruct_coeffs(grid.mesh)).to(
+        device, dtype)
+    grid, state, diag = (grid.to(device, dtype), state.to(device, dtype),
+                         diag.to(device, dtype))
+    carry = init_carry(grid, cfg, state, diag, cfg.config_dt)
+    args, kwargs = kf_eta_inputs(grid, carry.state, carry.diag, coeffs)
+    out = {"kf_eta": count_ops(
+        lambda: kfeta.kf_eta(*args, cfg.config_dt, **kwargs))}
+    nc = grid.mesh.nCells
+    for label, pcfg, init_kw in suites():
+        phys = manager.init_physics_state(nc, nz, dtype=dtype, device=device,
+                                          **init_kw)
+        out[f"physics_step {label}"] = count_ops(
+            lambda: manager.physics_step(grid, pcfg, grid.mesh, coeffs,
+                                         carry.state, carry.diag, phys,
+                                         cfg.config_dt))
+    return out
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--n", type=int, default=12)
+    parser.add_argument("--nz", type=int, default=40)
+    parser.add_argument("--device", default=None, help="default cuda:0")
+    args = parser.parse_args()
+    device = resolve_device(args.device)
+    for label, k in run(args.n, args.nz, device).items():
+        print(f"{label}: {k} aten calls ({args.n}x{args.n} cells, "
+              f"{args.nz} levels, {device})")
+
+
+if __name__ == "__main__":
+    main()

@@ -325,3 +325,69 @@ def test_mesoref_step_on_the_card_matches_the_cpu(cuda_device):
                      [getattr(c_cpu.state, k)], 1e-11)
     for k in ("tsk", "glw", "gsw", "rad_tend", "hpbl", "tslb", "smois"):
         assert_close([getattr(p_gpu, k).cpu()], [getattr(p_cpu, k)], 1e-11)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("physics", ["convection_permitting", "kain_fritsch"])
+def test_convperm_and_kf_steps_on_the_card_match_the_cpu(cuda_device,
+                                                         physics):
+    """One coupled step of the 144-cell, 16-level supercell on the card:
+    Thompson with eight scalars under the convection_permitting suite
+    (12 K1 + 36 K2 launches), or WSM6 under PhysicsConfig(), i.e.
+    Kain-Fritsch (12 K1 + 30 K2); none from the physics. The state and the
+    physics state agree with the CPU's plain path at 1e-11 x max|CPU|."""
+    import dataclasses
+
+    from mpas_tpu_torch.cores.atmosphere.config import AtmConfig
+    from mpas_tpu_torch.cores.atmosphere.hooks import run_steps_with_physics
+    from mpas_tpu_torch.cores.atmosphere.init_supercell import init_supercell
+    from mpas_tpu_torch.cores.atmosphere.moisture import seeded_moisture
+    from mpas_tpu_torch.cores.atmosphere.physics.manager import (
+        SCHEME_FIELDS, PhysicsConfig, init_physics_state, resolve_suite)
+    from mpas_tpu_torch.cores.atmosphere.time_integration import init_carry
+    from mpas_tpu_torch.mesh.planar import planar_hex_mesh
+    from mpas_tpu_torch.ops.reconstruct import build_reconstruct_coeffs
+
+    convperm = physics == "convection_permitting"
+    cfg = AtmConfig(config_dt=12.0, config_nvertlevels=16,
+                    config_len_disp=2000.0, config_xnutr=0.0,
+                    config_microp_scheme="mp_thompson" if convperm
+                    else "mp_wsm6", config_monotonic=True)
+    grid, state, diag = init_supercell(planar_hex_mesh(12, 12, 2000.0), cfg,
+                                       case=5)
+    sc = seeded_moisture(grid.mesh, state.scalars, 7)
+    parts = [sc, torch.zeros_like(sc)]
+    if convperm:
+        parts.append(torch.full_like(sc[..., :2], 1e-2))
+    state = dataclasses.replace(state, scalars=torch.cat(parts, -1))
+    pcfg, init_kw = None, {}
+    if convperm:
+        pcfg = resolve_suite(PhysicsConfig(
+            config_physics_suite=physics, **{k: "suite"
+                                             for k in SCHEME_FIELDS}))
+        init_kw = dict(lsm_scheme="noah", pbl_scheme="mynn")
+    coeffs = torch.from_numpy(build_reconstruct_coeffs(grid.mesh))
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        g = grid.to(dev, torch.float64)
+        carry = init_carry(g, cfg, state.to(dev, torch.float64),
+                           diag.to(dev, torch.float64), 12.0)
+        phys = init_physics_state(144, 16, device=dev, **init_kw)
+        kernels.reset_launch_counts()      # after init_carry's one K2
+        out[dev.type] = run_steps_with_physics(g, cfg, carry, phys,
+                                               coeffs.to(dev), 12.0, 1,
+                                               pcfg=pcfg, gmt_hours=7.0)
+    assert kernels.launch_counts == {"acoustic_cell_update": 12,
+                                     "tinydot": 36 if convperm else 30}
+    (c_cpu, p_cpu), (c_gpu, p_gpu) = out["cpu"], out["cuda"]
+    for k in ("u", "w", "theta_m", "rho_zz"):
+        assert_close([getattr(c_gpu.state, k).cpu()],
+                     [getattr(c_cpu.state, k)], 1e-11)
+    sc_gpu, sc_cpu = c_gpu.state.scalars.cpu(), c_cpu.state.scalars
+    assert_close([sc_gpu[..., :6]], [sc_cpu[..., :6]], 1e-11)
+    if convperm:
+        assert_close([sc_gpu[..., 6:]], [sc_cpu[..., 6:]], 1e-11)
+    for f in dataclasses.fields(p_cpu):
+        v = getattr(p_cpu, f.name)
+        if v is not None and v.dim() > 0:
+            assert_close([getattr(p_gpu, f.name).cpu()], [v], 1e-11)

@@ -130,8 +130,15 @@ import mpas_tpu_torch.cores.atmosphere.hooks
 import mpas_tpu_torch.cores.atmosphere.physics.manager
 import mpas_tpu_torch.cores.atmosphere.physics.rrtmg
 import mpas_tpu_torch.cores.atmosphere.physics.wsm6
+import mpas_tpu_torch.cores.atmosphere.physics.thompson
+import mpas_tpu_torch.cores.atmosphere.physics.mynn_sfc
+import mpas_tpu_torch.cores.atmosphere.physics.mynn
+import mpas_tpu_torch.cores.atmosphere.physics.gf
+import mpas_tpu_torch.cores.atmosphere.physics.kfeta
+import mpas_tpu_torch.cores.atmosphere.physics.convection
 import mpas_tpu_torch.ops.reconstruct
 import mpas_tpu_torch.tools.mesoref_noon
+import mpas_tpu_torch.tools.op_count
 import mpas_tpu_torch.mesh.planar
 import mpas_tpu_torch.mesh.varres
 import mpas_tpu_torch.cores.sw.time_integration

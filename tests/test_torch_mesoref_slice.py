@@ -247,15 +247,28 @@ def test_noah_surface_diverges_at_noon_over_clear_columns(start, coupled):
 
 def test_run_steps_with_physics_defaults_refuse_kain_fritsch(start):
     """pcfg=None is PhysicsConfig() as in the reference, whose literal
-    convection default is Kain-Fritsch: not ported, so it raises."""
+    convection default is Kain-Fritsch: it runs, exactly as physics_step
+    with PhysicsConfig() then srk3_step (tests/test_torch_kf_slice.py
+    holds it to the reference)."""
     x = start
     nc, nz = x["carry"].state.theta_m.shape
     phys = tman.init_physics_state(nc, nz, device="cpu")
-    coeffs = torch.zeros((nc, x["grid"].mesh.maxEdges, 3),
-                         dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="kfeta"):
-        hooks.run_steps_with_physics(x["grid"], x["cfg"], x["carry"], phys,
-                                     coeffs, DT, 1)
+    coeffs = torch.from_numpy(jrecon.build_reconstruct_coeffs(x["gj"].mesh))
+    carry, phys1 = hooks.run_steps_with_physics(x["grid"], x["cfg"],
+                                                x["carry"], phys, coeffs,
+                                                DT, 1)
+    th, sc, u, want_phys = tman.physics_step(
+        x["grid"], tman.PhysicsConfig(), x["grid"].mesh, coeffs,
+        x["carry"].state, x["carry"].diag, phys, DT)
+    want = tti.srk3_step(x["grid"], x["cfg"], dataclasses.replace(
+        x["carry"], state=dataclasses.replace(x["carry"].state, theta_m=th,
+                                              scalars=sc, u=u)), DT)
+    for f in ("u", "w", "theta_m", "rho_zz", "scalars"):
+        assert torch.equal(getattr(carry.state, f),
+                           getattr(want.state, f)), f
+    for f in ("tsk", "rainc", "hpbl", "glw", "gsw", "rad_tend"):
+        assert torch.equal(getattr(phys1, f), getattr(want_phys, f)), f
+    assert phys1.tslb is None and phys1.qke is None
 
 
 def test_physics_state_round_trips_through_convert(suite_runs):

@@ -16,6 +16,7 @@ import dataclasses
 import subprocess
 import sys
 from pathlib import Path
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -28,9 +29,12 @@ from mpas_tpu.cores.atmosphere.init_supercell import \
     init_supercell as jax_init_supercell
 from mpas_tpu.cores.atmosphere.physics import cldfra3 as jcld
 from mpas_tpu.cores.atmosphere.physics import driver as jdriver
+from mpas_tpu.cores.atmosphere.physics import gf as jgf
 from mpas_tpu.cores.atmosphere.physics import gwdo as jgwdo
 from mpas_tpu.cores.atmosphere.physics import lsm as jlsm
 from mpas_tpu.cores.atmosphere.physics import manager as jman
+from mpas_tpu.cores.atmosphere.physics import mynn as jmynn
+from mpas_tpu.cores.atmosphere.physics import mynn_sfc as jmynn_sfc
 from mpas_tpu.cores.atmosphere.physics import noah as jnoah
 from mpas_tpu.cores.atmosphere.physics import radiation as jrad
 from mpas_tpu.cores.atmosphere.physics import rrtmg as jrrtmg
@@ -43,14 +47,18 @@ from mpas_tpu.mesh.planar import planar_hex_mesh as jax_planar_hex_mesh
 from mpas_tpu.mesh.sphere import icosahedral_mesh as jax_icosahedral_mesh
 from mpas_tpu.ops import reconstruct as jrecon
 from mpas_tpu_torch import convert
-from mpas_tpu_torch.constants import cp
+from mpas_tpu_torch.constants import cp, rvord
 from mpas_tpu_torch.cores.atmosphere.config import AtmConfig
 from mpas_tpu_torch.cores.atmosphere.moisture import seeded_moisture
 from mpas_tpu_torch.cores.atmosphere.physics import cldfra3 as tcld
+from mpas_tpu_torch.cores.atmosphere.physics import convection as tconv
 from mpas_tpu_torch.cores.atmosphere.physics import driver as tdriver
+from mpas_tpu_torch.cores.atmosphere.physics import gf as tgf
 from mpas_tpu_torch.cores.atmosphere.physics import gwdo as tgwdo
 from mpas_tpu_torch.cores.atmosphere.physics import lsm as tlsm
 from mpas_tpu_torch.cores.atmosphere.physics import manager as tman
+from mpas_tpu_torch.cores.atmosphere.physics import mynn as tmynn
+from mpas_tpu_torch.cores.atmosphere.physics import mynn_sfc as tmynn_sfc
 from mpas_tpu_torch.cores.atmosphere.physics import noah as tnoah
 from mpas_tpu_torch.cores.atmosphere.physics import radiation as trad
 from mpas_tpu_torch.cores.atmosphere.physics import rrtmg as trrtmg
@@ -61,6 +69,7 @@ from mpas_tpu_torch.cores.atmosphere.physics import ysu as tysu
 from mpas_tpu_torch.cores.atmosphere.time_integration import (init_carry,
                                                               srk3_step)
 from mpas_tpu_torch.ops import reconstruct as trecon
+from mpas_tpu_torch.tools import op_count
 
 torch.set_num_threads(1)
 
@@ -715,6 +724,28 @@ def test_physics_step(supercell, case):
         assert float(got[3].glw.min()) > 0.0
 
 
+# the swapped scheme's module of the port, its function called by
+# physics_step, and the reference's module (None: not compiled here)
+SWAPPED = {"kfeta.py": (tconv, "kf_convection_full", None),
+           "gf.py": (tgf, "gf_convection", jgf),
+           "mynn.py": (tmynn, "mynn", jmynn),
+           "mynn_sfc.py": (tmynn_sfc, "mynn_sfclay", jmynn_sfc)}
+
+
+def _reference_on(jfn, args, kwargs):
+    """jfn jitted on the tensors of a recorded port call (args, kwargs),
+    its Python numbers closed over."""
+    leaves, tree = jax.tree.flatten((args, kwargs))
+    is_t = [isinstance(v, torch.Tensor) for v in leaves]
+
+    def call(*arrays):
+        it = iter(arrays)
+        a, k = jax.tree.unflatten(tree, [next(it) if t else v
+                                         for v, t in zip(leaves, is_t)])
+        return jfn(*a, **k)
+    return jax.jit(call)(*[J(v.numpy()) for v, t in zip(leaves, is_t) if t])
+
+
 @pytest.mark.parametrize("field,value,module", [
     ("config_radiation_scheme", "cam", "cam_radiation.py"),
     ("config_conv_scheme", "kf", "kfeta.py"),
@@ -723,16 +754,79 @@ def test_physics_step(supercell, case):
     ("config_sfclay_scheme", "mynn", "mynn_sfc.py")])
 def test_physics_step_refuses_unported_schemes(supercell, field, value,
                                                module):
+    """The mesoscale_reference suite with one scheme swapped. CAM
+    radiation is not ported and raises, naming its module. The other
+    schemes (Kain-Fritsch, Grell-Freitas, the MYNN PBL and surface layer)
+    run: radiation, which comes before each, is the suite's bit for bit,
+    and the swapped scheme's call inside physics_step matches its JAX
+    twin on the same inputs. Kain-Fritsch's twin (a ~25-s compile) is
+    held in tests/test_torch_kf.py and test_torch_kf_slice.py; here its
+    inputs and its coupling back are checked. Each scheme within the
+    reference's physics_step: tests/test_torch_convperm.py and
+    test_torch_kf_slice.py."""
     x = supercell
     kw = dict(MESOREF, **{field: value})
-    _, tph = _physics_states(144, 16, dict(lsm_scheme="noah"), None)
-    with pytest.raises(NotImplementedError, match=module):
-        tman.physics_step(
-            x["tgrid"], tman.PhysicsConfig(**kw), x["tgrid"].mesh,
-            torch.zeros((144, x["tgrid"].mesh.maxEdges, 3),
-                        dtype=torch.float64),
-            convert.state_from_arrays(x["s"]),
-            convert.diag_from_arrays(x["d"]), tph, 12.0)
+    init_kw = dict(lsm_scheme="noah")
+    if kw["config_pbl_scheme"] == "mynn":
+        init_kw["pbl_scheme"] = "mynn"
+    _, tph = _physics_states(144, 16, init_kw, None)
+    # resolved w from a seed (the start is at rest), zero at the ground
+    # and the lid, so that Kain-Fritsch triggers
+    w = np.random.default_rng(16).uniform(-1.0, 3.0, x["s"]["w"].shape)
+    w[:, [0, -1]] = 0.0
+    state = dataclasses.replace(convert.state_from_arrays(x["s"]), w=T(w))
+    coeffs = T(jrecon.build_reconstruct_coeffs(x["jgrid"].mesh))
+
+    def step(**swap):
+        return tman.physics_step(
+            x["tgrid"], tman.PhysicsConfig(**dict(MESOREF, **swap)),
+            x["tgrid"].mesh, coeffs, state, convert.diag_from_arrays(x["d"]),
+            tph, 12.0)
+    if value == "cam":
+        with pytest.raises(NotImplementedError, match=module):
+            step(**{field: value})
+        return
+    mod, name, jmod = SWAPPED[module]
+    fn = getattr(mod, name)
+    calls = []
+
+    def recorded(*a, **k):
+        calls.append((a, k, fn(*a, **k)))
+        return calls[-1][2]
+    with mock.patch.object(mod, name, recorded):
+        got = step(**{field: value})
+    base = step()
+    assert len(calls) == 1
+    for f in ("glw", "gsw", "rad_tend", "time_since_rad"):
+        assert torch.equal(getattr(got[3], f), getattr(base[3], f)), f
+    for v in (*got[:3], *dataclasses.astuple(got[3])):
+        assert v is None or bool(torch.isfinite(v).all())
+    a, k, out = calls[0]
+    if jmod is not None:
+        ref = _reference_on(getattr(jmod, name), a, k)
+        if isinstance(ref, dict):
+            assert sorted(out) == sorted({*ref, "cd"} if name == "mynn_sfclay"
+                                         else ref)
+            out, ref = [out[n] for n in sorted(ref)], \
+                [ref[n] for n in sorted(ref)]
+        assert_close(list(out), list(ref))
+        return
+    # Kain-Fritsch: fed as op_count.kf_eta_inputs derives its inputs from
+    # the state (w at the layer midpoints, the cell winds, dx), but th and
+    # qv, handed on after radiation and the PBL; th and qv, the detrained
+    # cloud water and the rain coupled back as the reference couples them
+    a2, k2 = op_count.kf_eta_inputs(x["tgrid"], state,
+                                    convert.diag_from_arrays(x["d"]), coeffs)
+    for i, (g, w) in enumerate(zip(
+            (*a[2:7], *[k[n] for n in ("w0avg", "u", "v", "dx")]),
+            (*a2[2:], *[k2[n] for n in ("w0avg", "u", "v", "dx")]))):
+        assert torch.equal(g, w), i
+    assert float(out["ainc"].max()) > 0.0
+    assert float(out["qc_detr"].max()) > 0.0
+    assert torch.equal(got[0], out["th"] * (1.0 + rvord * out["qv"]))
+    assert torch.equal(got[1][..., 0], out["qv"])
+    assert torch.equal(got[1][..., 1], state.scalars[..., 1] + out["qc_detr"])
+    assert torch.equal(got[3].rainc, tph.rainc + out["raincv_m"])
 
 
 def test_rrtmg_refuses_an_ozone_profile(cols):
@@ -745,9 +839,11 @@ def test_rrtmg_refuses_an_ozone_profile(cols):
 
 @pytest.mark.parametrize("scheme,nsc,error", [
     ("mp_wsm6", 3, ValueError), ("mp_thompson", 6, ValueError),
-    ("mp_thompson", 8, NotImplementedError)])
+    ("mp_thompson", 8, None)])
 def test_srk3_step_scalar_checks(supercell, scheme, nsc, error):
-    """The reference's scalar-count ValueErrors; Thompson is not ported."""
+    """The reference's scalar-count ValueErrors; Thompson with its eight
+    scalars runs (against the reference in tests/test_torch_convperm.py),
+    its numbers kept in [1e-2, 1e8]."""
     x = supercell
     cfg = AtmConfig(config_dt=12.0, config_nvertlevels=16,
                     config_len_disp=2000.0, config_xnutr=0.0,
@@ -758,6 +854,14 @@ def test_srk3_step_scalar_checks(supercell, scheme, nsc, error):
                                 scalars=T(sc))
     carry = init_carry(x["tgrid"], cfg, state,
                        convert.diag_from_arrays(x["d"]), 12.0)
+    if error is None:
+        out = srk3_step(x["tgrid"], cfg, carry, 12.0)
+        sc = out.state.scalars
+        assert bool(torch.isfinite(sc).all())
+        assert float(sc[..., 6:].min()) >= 1e-2
+        assert float(sc[..., 6:].max()) <= 1e8
+        assert float(out.rainnc.min()) >= 0.0
+        return
     with pytest.raises(error):
         srk3_step(x["tgrid"], cfg, carry, 12.0)
 
