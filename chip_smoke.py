@@ -99,10 +99,28 @@ seconds):
      each); phase 3 at its flat K1/K2 shapes;
    5c. ocean_channel_10km_4way: the same for the ocean channel (245 K2 a
      step, volume and heat over owned cells, u, h and tracers, the turns
-     against ocean_channel_10km).
+     against ocean_channel_10km);
+6. the command line (mpas_tpu_torch.__main__.main, in this process, each
+   run in a fresh temporary directory, float32, its mesh cache seeded
+   with phase 5's 40,962-cell mesh under the key icos64_l4):
+   - jw_120km: `atmosphere --mesh icos:64 --duration 2:00:00 -s
+     streams.atmosphere` (10 steps of 720 s; output and restart every
+     hour), then a restart from the 01h restart for the last hour in the
+     same directory; outputs at 00h, 01h and 02h and restarts at 01h and
+     02h; 12 K1 + 15 K2 launches a step in both runs (and one K2 for each
+     init_carry: setup, and resume on restart); the final output equal to
+     a direct run_steps of 10 steps from HOOKS.setup at max |a - b| /
+     (1 + |b|) <= 2e-4 (bit for bit or not is printed), the restarted
+     run's to the continuous run's; the driver's timer table, its ms/step
+     beside phase 5's, the seconds of stream output, each file's size;
+   - sw_tc5_120km: `sw --mesh icos:64 --dt 45`, 4 steps (8 K2 a step);
+   - ocean_channel_10km: `ocean --mesh channel:32,200,10000`, 4 steps of
+     300 s (245 K2 a step); each final output held to a direct run_steps
+     at the same bound.
 
 The second-to-last line is a JSON object with each kernel's numbers at
-its jw_120km float32 shape (launches summed over the ten paths), the
+its jw_120km float32 shape (launches summed over the ten paths and the
+command line's four runs), the
 last one {"ok": true, "device": {...}}. Without CUDA it fails before any
 result is printed.
 
@@ -115,8 +133,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -806,13 +826,13 @@ def run_path(name, device, card, setup):
           f"{drift[0]:.3e}; launches {counts} "
           f"(per step: K1 {K1_PER_STEP}, K2 {k2})")
     require(drift[0] <= 1e-5, f"dry mass not conserved: {drift[0]:.3e}")
-    return cfg, grid, carry, counts, drift, sed, host
+    return cfg, grid, carry, counts, drift, sed, host, ms
 
 
 def run_supercell_path(device, card):
     """Phase 5, supercell_2km (bench.py:104-119) in float32, from the
     seeded moist start: the timed steps carry cloud and rain."""
-    cfg, grid, carry, counts, drift, sed, _ = run_path(
+    cfg, grid, carry, counts, drift, sed, _, _ = run_path(
         "supercell_2km", device, card, lambda: supercell_setup(96, 40))
     require((grid.mesh.nCells, grid.vert.nz) == (9216, 40),
             "supercell_2km built the wrong size")
@@ -1114,7 +1134,7 @@ def run_var_path(device, card):
     variable_res_mesh(23000, iterations=30), 26 levels, dt = 90 s,
     config_len_disp = 15 km, a quarter of the Earth's radius, mesh-scaled
     dissipation, in float32."""
-    cfg, grid, carry, counts, _, _, _ = run_path(
+    cfg, grid, carry, counts, _, _, _, _ = run_path(
         "jw_var60_15", device, card,
         lambda: jw_var_setup(23000, 30, 26, 90.0, 15000.0))
     mesh = grid.mesh
@@ -1714,6 +1734,233 @@ def profile_physics(name, run, out_dir):
                   ("physics_step",), more=schemes)
 
 
+# --- phase 6: the command line (python -m mpas_tpu_torch), in-process ---
+
+CLI_REL = 2e-4     # max |a - b| / (1 + |b|), __graft_entry__.py:128-133
+CLI_STREAMS = """<streams>
+<immutable_stream name="restart" type="input;output"
+    filename_template="restart.atmosphere.$Y-$M-$D_$h.$m.$s.nc"
+    output_interval="1:00:00"/>
+<stream name="output" type="output"
+    filename_template="output.atmosphere.$Y-$M-$D_$h.$m.$s.nc"
+    output_interval="1:00:00"/>
+</streams>
+"""
+
+
+def cli_run(argv):
+    """One run of the command line in this process, the launch counts
+    zeroed just before and read just after; returns (counts, seconds)."""
+    from mpas_tpu_torch import kernels
+    from mpas_tpu_torch.__main__ import main
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    require(rc == 0, f"python -m mpas_tpu_torch {' '.join(argv)}: exit {rc}")
+    return dict(kernels.launch_counts), seconds
+
+
+def cli_log(run_dir, core):
+    """The run's log, and {timer: (calls, seconds)} of its last table."""
+    text = (run_dir / f"log.{core}.0000.out").read_text()
+    table = text.rsplit("timer table:\n", 1)[1].rstrip("\n")
+    rows = {}
+    for line in table.splitlines()[1:]:
+        name, calls, total, _ = line.rsplit(None, 3)
+        rows[name.strip()] = (int(calls), float(total))
+    return text, table, rows
+
+
+def cli_compare(label, got, ref):
+    """Every field of output `got` (read from a file) against `ref`, the
+    same fields, at CLI_REL; prints the worst and whether bit for bit."""
+    worst, same = 0.0, True
+    for k, r in ref.items():
+        g = got[k][0]              # the file's single record
+        require(g.shape == r.shape, f"{label}: {k} {g.shape} {r.shape}")
+        a, b = g.astype(np.float64), r.astype(np.float64)
+        err = float((np.abs(a - b) / (1.0 + np.abs(b))).max())
+        worst = max(worst, err)
+        same = same and np.array_equal(g, r)
+        require(np.isfinite(a).all() and err <= CLI_REL,
+                f"{label}: {k} off by {err:.3e} (bound {CLI_REL})")
+    print(f"{label}: {len(ref)} fields, max |a - b| / (1 + |b|) "
+          f"{worst:.3e} (bound {CLI_REL}), bit for bit: {same}")
+    return worst
+
+
+def cli_direct(hooks, cfg, spec, device, step):
+    """The same run without the command line: hooks.setup, then `step` on
+    the run in one call, timed like the driver's "time integration" (no
+    warm step, synchronised). Returns (output fields, seconds)."""
+    run = hooks.setup(cfg, spec, device, torch.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(run)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return ({k: a for k, (_, a) in hooks.output_fields(run)[0].items()},
+            seconds)
+
+
+def cli_sizes(run_dir):
+    return ", ".join(f"{p.name} {p.stat().st_size / 1e6:.1f} MB"
+                     for p in sorted(run_dir.glob("*.nc")))
+
+
+def run_cli_jw_path(device, card, direct_ms):
+    """jw_120km through the command line: 10 steps of 720 s on icos:64
+    with output and restart every hour, then a restart from the 01h
+    restart for the last hour in the same directory. Both runs hold 12 K1
+    and 15 K2 launches a step (and one K2 in each init_carry: setup, and
+    resume on restart); the final output equals a direct run_steps of 10
+    steps from HOOKS.setup within CLI_REL, the restarted run's final
+    output the continuous run's."""
+    from mpas_tpu_torch.cores.atmosphere.hooks import HOOKS
+    from mpas_tpu_torch.cores.atmosphere.time_integration import run_steps
+    from mpas_tpu_torch.io.netcdf import read_netcdf
+    name = "jw_120km_cli"
+    final = "output.atmosphere.0000-01-01_02.00.00.nc"
+    with tempfile.TemporaryDirectory(prefix="jw_120km_cli") as tmp:
+        d = Path(tmp)
+        (d / "streams.atmosphere").write_text(CLI_STREAMS)
+        counts, secs = cli_run(["atmosphere", "--mesh", "icos:64",
+                                "--duration", "2:00:00", "-s",
+                                str(d / "streams.atmosphere"),
+                                "--run-dir", str(d)])
+        log, table, rows = cli_log(d, "atmosphere")
+        require("completed step 10/10 (0000-01-01_02:00:00)" in log,
+                f"{name}: no 10th step in the log")
+        files = sorted(p.name for p in d.glob("*.nc"))
+        require(files == [f"output.atmosphere.0000-01-01_0{h}.00.00.nc"
+                          for h in range(3)]
+                + [f"restart.atmosphere.0000-01-01_0{h}.00.00.nc"
+                   for h in (1, 2)], f"{name}: files {files}")
+        require((d / "restart_timestamp").read_text().strip()
+                == "0000-01-01_02:00:00", f"{name}: restart_timestamp")
+        sizes = cli_sizes(d)
+        continuous = read_netcdf(str(d / final))[0]
+        require(continuous["theta_m"].shape == (1, 40962, 26)
+                and continuous["theta_m"].dtype == np.float32,
+                f"{name}: theta_m {continuous['theta_m'].shape}")
+        ms = 1e3 * rows["time integration"][1] / 10
+        print(f"{name} on {card}: 10 steps (40,962 cells x 26 levels, f32) "
+              f"in {secs:.2f} s with setup and files; time integration "
+              f"{ms:.2f} ms/step (the direct jw_120km {direct_ms:.2f} "
+              f"ms/step), stream output {rows['stream output'][1]:.3f} s "
+              f"in {rows['stream output'][0]} writes; launches {counts}")
+        print(f"{name} files: {sizes}")
+        print(f"{name} timer table:\n{table}")
+        require(counts["acoustic_cell_update"] == K1_PER_STEP * 10
+                and counts["tinydot"] == K2_PER_STEP["jw_120km"] * 10 + 1,
+                f"{name}: launches {counts}")
+
+        # the restart: start from the 01h restart (restart_timestamp names
+        # the last one, 02h), run the last hour
+        (d / "namelist.atmosphere").write_text(
+            "&nhyd_model\n   config_do_restart = .true.\n"
+            "   config_start_time = '0000-01-01_01:00:00'\n"
+            "   config_run_duration = '1:00:00'\n/\n")
+        counts_r, secs_r = cli_run(["atmosphere", "--mesh", "icos:64", "-n",
+                                    str(d / "namelist.atmosphere"), "-s",
+                                    str(d / "streams.atmosphere"),
+                                    "--run-dir", str(d)])
+        log, _, rows_r = cli_log(d, "atmosphere")
+        require("Restarted from restart stream at 0000-01-01_01:00:00" in log
+                and "completed step 5/5 (0000-01-01_02:00:00)" in log,
+                f"{name}: the restarted run's log")
+        restarted = read_netcdf(str(d / final))[0]
+        print(f"{name} restarted at 01h on {card}: 5 steps in {secs_r:.2f} s "
+              f"with setup and files; time integration "
+              f"{1e3 * rows_r['time integration'][1] / 5:.2f} ms/step; "
+              f"launches {counts_r}")
+        require(counts_r["acoustic_cell_update"] == K1_PER_STEP * 5
+                and counts_r["tinydot"] == K2_PER_STEP["jw_120km"] * 5 + 2,
+                f"{name} restarted: launches {counts_r}")
+
+    cfg = HOOKS.config_cls()
+
+    def step(run):
+        run.carry = run_steps(run.grid, cfg, run.carry, cfg.config_dt, 10)
+    direct, direct_s = cli_direct(HOOKS, cfg, "icos:64", device, step)
+    print(f"{name}: the direct run_steps of 10 steps from HOOKS.setup, "
+          f"timed as the driver times them (no warm step), "
+          f"{1e3 * direct_s / 10:.2f} ms/step; the command line's "
+          f"{ms:.2f}")
+    cli_compare(f"{name} final output vs the direct run_steps", continuous,
+                direct)
+    cli_compare(f"{name} restarted final output vs the continuous run",
+                restarted, {k: v[0] for k, v in continuous.items()
+                            if k != "xtime"})
+    return {"continuous": counts, "restarted": counts_r}, ms
+
+
+def run_cli_small_path(device, card, hooks, cfg, spec, argv, steps, k2,
+                       direct_step):
+    """sw or ocean through the command line (`argv` gives it cfg's dt and
+    `steps` steps): the final output held to direct_step(run, steps) from
+    hooks.setup(cfg) at CLI_REL, K2 launches `k2` a step and no K1."""
+    from mpas_tpu_torch.io.netcdf import read_netcdf
+    core = hooks.name
+    name = f"{core} --mesh {spec}"
+    with tempfile.TemporaryDirectory(prefix=f"{core}_cli") as tmp:
+        d = Path(tmp)
+        counts, secs = cli_run([core, "--mesh", spec, "--run-dir", str(d)]
+                               + argv)
+        log, table, rows = cli_log(d, core)
+        require(f"completed step {steps}/{steps}" in log,
+                f"{name}: the log has no step {steps}")
+        outputs = sorted(d.glob(f"output.{core}.*.nc"))
+        require(len(outputs) == 2, f"{name}: outputs {outputs}")
+        got = read_netcdf(str(outputs[-1]))[0]
+        print(f"{name} on {card}: {steps} steps in {secs:.2f} s with setup "
+              f"and files; time integration "
+              f"{1e3 * rows['time integration'][1] / steps:.2f} ms/step; "
+              f"files: {cli_sizes(d)}; launches {counts}")
+        print(f"{name} timer table:\n{table}")
+    require(counts["acoustic_cell_update"] == 0
+            and counts["tinydot"] == k2 * steps, f"{name}: {counts}")
+    direct, direct_s = cli_direct(hooks, cfg, spec, device,
+                                  lambda run: direct_step(run, steps))
+    print(f"{name}: the direct run_steps from HOOKS.setup "
+          f"{1e3 * direct_s / steps:.2f} ms/step")
+    cli_compare(f"{name} final output vs the direct run_steps", got, direct)
+    return counts
+
+
+def run_cli_sw_path(device, card):
+    """sw_tc5_120km through the command line: TC5 on icos:64, dt 45 s,
+    4 steps (8 K2 a step)."""
+    from mpas_tpu_torch.cores.sw.hooks import HOOKS
+    from mpas_tpu_torch.cores.sw.time_integration import run_steps
+    cfg = HOOKS.config_cls(config_dt=45.0)
+
+    def step(run, n):
+        run.state = run_steps(run.mesh, cfg, run.state, run.h_s, n)
+    return run_cli_small_path(device, card, HOOKS, cfg, "icos:64",
+                              ["--dt", "45", "--duration", "0:03:00"], 4,
+                              SW_K2_PER_STEP, step)
+
+
+def run_cli_ocean_path(device, card):
+    """ocean_channel_10km through the command line: the channel on
+    channel:32,200,10000, 20 levels, 4 split-explicit steps of the
+    default 300 s (245 K2 a step, from the config)."""
+    from mpas_tpu_torch.cores.ocean.core import (
+        run_steps, tinydot_launches_per_split_step)
+    from mpas_tpu_torch.cores.ocean.hooks import HOOKS
+    cfg = HOOKS.config_cls()
+
+    def step(run, n):
+        run.state = run_steps(run.grid, cfg, run.state, n)
+    return run_cli_small_path(device, card, HOOKS, cfg,
+                              "channel:32,200,10000",
+                              ["--duration", "0:20:00"], 4,
+                              tinydot_launches_per_split_step(cfg), step)
+
+
 def timed(label, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -1777,6 +2024,7 @@ def main():
     jw = timed("jw_120km", run_path, "jw_120km", device, card,
                lambda: jw_setup(mesh64, 26, 720.0, 120000.0))
     cfg, grid, carry, counts["jw_120km"] = jw[:4]
+    jw_ms = jw[7]
     require((grid.mesh.nCells, grid.vert.nz) == (40962, 26),
             "jw_120km built the wrong size")
     if args.profile:
@@ -1805,6 +2053,10 @@ def main():
             box[0] = sw_ti.rk4_step(mesh, cfg, box[0], h_s, cfg.config_dt)
         profile_steps("sw_tc5_120km", sw_step, args.profile, sw_ti,
                       ("stage_tendencies",))
+    # phase 6's mesh cache: the command line's icos:64 is this mesh
+    from mpas_tpu_torch.mesh.cache import save_mesh
+    cli_cache = tempfile.TemporaryDirectory(prefix="mesh_cache")
+    save_mesh(mesh64, os.path.join(cli_cache.name, "icos64_l4.npz"))
     del sw, mesh64
     cfg, grid, carry, counts["supercell_2km"] = timed(
         "supercell_2km", run_supercell_path, device, card)
@@ -1849,6 +2101,29 @@ def main():
         "shapes", check_kernels, device, (),
         (("ocean_channel_10km_4way", flat_nc, ((6, 6, 1), (6, 6, 20),
                                                (6, 6, 40))),)))
+
+    # phase 6: the command line in this process, its mesh cache seeded
+    saved_cache = os.environ.get("MPAS_TPU_TORCH_CACHE")
+    os.environ["MPAS_TPU_TORCH_CACHE"] = cli_cache.name
+    try:
+        cli_counts, cli_ms = timed("jw_120km via the command line",
+                                   run_cli_jw_path, device, card, jw_ms)
+        counts["jw_120km_cli"] = cli_counts["continuous"]
+        counts["jw_120km_cli_restarted"] = cli_counts["restarted"]
+        counts["sw_tc5_120km_cli"] = timed(
+            "sw_tc5_120km via the command line", run_cli_sw_path, device,
+            card)
+        counts["ocean_channel_10km_cli"] = timed(
+            "ocean_channel_10km via the command line", run_cli_ocean_path,
+            device, card)
+    finally:
+        if saved_cache is None:
+            os.environ.pop("MPAS_TPU_TORCH_CACHE")
+        else:
+            os.environ["MPAS_TPU_TORCH_CACHE"] = saved_cache
+        cli_cache.cleanup()
+    print(f"jw_120km on {card}: {cli_ms:.2f} ms/step through the command "
+          f"line, {jw_ms:.2f} ms/step direct (phase 5)")
 
     numbers = kernel_json_numbers(kernel_results)
     sources = {"acoustic_cell_update": ("mpas_tpu_torch/csrc/acoustic.cu",

@@ -18,6 +18,11 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def to_host(t):
+    """A tensor's values as a numpy array on the host."""
+    return t.detach().cpu().numpy()
+
+
 def to_device(obj, device, dtype):
     """Copy of dataclass `obj` with every tensor field on `device`:
     floating tensors cast to `dtype`, integer (index) tensors to int64 —

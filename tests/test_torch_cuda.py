@@ -391,3 +391,31 @@ def test_convperm_and_kf_steps_on_the_card_match_the_cpu(cuda_device,
         v = getattr(p_cpu, f.name)
         if v is not None and v.dim() > 0:
             assert_close([getattr(p_gpu, f.name).cpu()], [v], 1e-11)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("core,argv", [
+    ("sw", ["--dt", "600", "--duration", "1:00:00"]),
+    ("atmosphere", ["--duration", "1:00:00"])])
+def test_command_line_on_the_card_matches_the_cpu(cuda_device, tmp_path,
+                                                  monkeypatch, core, argv):
+    """python -m mpas_tpu_torch <core> --mesh icos:8 --x64 on the card
+    (its default device) and with --cpu: the final outputs agree at
+    1e-11 x max|CPU| per field, and only the card's run launches K1/K2."""
+    from mpas_tpu_torch.__main__ import main
+    from mpas_tpu_torch.io.netcdf import read_netcdf
+    monkeypatch.setenv("MPAS_TPU_TORCH_CACHE", str(tmp_path / "cache"))
+    final = f"output.{core}.0000-01-01_01.00.00.nc"
+    out, counts = {}, {}
+    for where, extra in (("cuda", []), ("cpu", ["--cpu"])):
+        kernels.reset_launch_counts()
+        assert main([core, "--mesh", "icos:8", "--x64", "--run-dir",
+                     str(tmp_path / where)] + argv + extra) == 0
+        counts[where] = sum(kernels.launch_counts.values())
+        out[where] = read_netcdf(str(tmp_path / where / final))[0]
+    assert counts["cuda"] > 0 and counts["cpu"] == 0
+    assert sorted(out["cuda"]) == sorted(out["cpu"])
+    for k, ref in out["cpu"].items():
+        if k != "xtime":
+            scale = max(np.abs(ref).max(), 1e-300)
+            assert np.abs(out["cuda"][k] - ref).max() <= 1e-11 * scale, k
