@@ -42,9 +42,15 @@ seconds):
    coupled steps at 07:00; rain, qke finite and >= 0), with WSM6 and the
    default PhysicsConfig() (Kain-Fritsch, 6 coupled steps at 07:00), and
    kf_eta alone on 24 deep unstable columns (40 levels to 25 km; it fires
-   in every column), all held at 1e-11 x max; and the ocean's baroclinic
-   channel (192 cells, 10 levels: 3 split-explicit steps of 300 s and 4
-   RK4 steps of 30 s);
+   in every column), the supercell with WSM6 and the mesoscale_reference
+   suite under CAM radiation with the supercell namelist's dissipation
+   (2d_fixed, vertical eddy viscosities; 6 coupled steps at 07:00), JW
+   with Rayleigh damping of u and both vertical eddy viscosities (3
+   steps), rrtmg_lw/rrtmg_sw with an o3_climatology profile and the urban
+   canopy (10 slucm_step calls, bep_column_drag, bep_heat_sources) and
+   oml_step on 9,216 columns, all held at 1e-11 x max; and the ocean's
+   baroclinic channel (192 cells, 10 levels: 3 split-explicit steps of
+   300 s and 4 RK4 steps of 30 s);
    4b. small float64 sharded runs on the card, all shards in one process
    (loopback), held to the same runs unsharded on the card at 1e-11 x
    max: JW (642 cells, 10 levels, 3 steps) on 2 and 4 shards, the ocean
@@ -80,8 +86,13 @@ seconds):
      driver hook's default PhysicsConfig() (Kain-Fritsch, YSU, MM5 surface
      layer, slab LSM, broadband radiation) at 07:00 (12 K1 and 30 K2 a
      step); the columns Kain-Fritsch activated, the largest rainc and
-     kf_eta's kernels and device ms a call. The three suite paths print
-     their kernels and device busy ms a step from one profiled step;
+     kf_eta's kernels and device ms a call;
+   - supercell_2km_cam: supercell_2km_mesoref with CAM radiation in place
+     of RRTMG and the MPAS-A supercell namelist's dissipation (2d_fixed,
+     horizontal and vertical eddy viscosities of 500 m^2/s, no del4), at
+     07:00 (12 K1 and 30 K2 a step), mesoref's gates; cam_lw's and
+     cam_sw's device ms. The four suite paths print their kernels and
+     device busy ms a step from one profiled step;
    - jw_var60_15: JW on the 23,000-cell 60-15 km variable-resolution mesh
      (maxEdges 8) of a quarter-radius planet, 26 levels, dt = 90 s, with
      mesh-scaled dissipation (12 K1 and 15 K2 launches per step);
@@ -100,6 +111,11 @@ seconds):
    5c. ocean_channel_10km_4way: the same for the ocean channel (245 K2 a
      step, volume and heat over owned cells, u, h and tracers, the turns
      against ocean_channel_10km);
+   5d. the diagnostics manager (isobaric, convective, pv and reflectivity)
+     on supercell_2km_cam's final state, and isobaric, convective and pv
+     on jw_120km's: once in f32 on the card (its seconds printed), then in
+     f64 from that state on the card and on the CPU, held at 1e-11 x max
+     with the same NaN positions;
 6. the command line (mpas_tpu_torch.__main__.main, in this process, each
    run in a fresh temporary directory, float32, its mesh cache seeded
    with phase 5's 40,962-cell mesh under the key icos64_l4):
@@ -119,13 +135,12 @@ seconds):
      at the same bound.
 
 The second-to-last line is a JSON object with each kernel's numbers at
-its jw_120km float32 shape (launches summed over the ten paths and the
-command line's four runs), the
-last one {"ok": true, "device": {...}}. Without CUDA it fails before any
-result is printed.
+its jw_120km float32 shape (launches summed over the eleven paths and
+the command line's four runs), the last one {"ok": true, "device":
+{...}}. Without CUDA it fails before any result is printed.
 
 --profile DIR adds torch.profiler breakdowns of 3 steps of each of the
-ten paths.
+eleven paths.
 """
 
 from __future__ import annotations
@@ -154,7 +169,8 @@ K2_PER_STEP = {"jw_120km": 3 + 9 + 3 * 1, "supercell_2km": 3 + 9 + 3 * 3,
                "jw_var60_15": 3 + 9 + 3 * 1,
                "supercell_2km_mesoref": 3 + 9 + 3 * 6,
                "supercell_2km_convperm": 3 + 9 + 3 * 8,
-               "supercell_2km_kf": 3 + 9 + 3 * 6}
+               "supercell_2km_kf": 3 + 9 + 3 * 6,
+               "supercell_2km_cam": 3 + 9 + 3 * 6}
 PHYS_RTOL = 1e-11                  # the suite's f64 card-vs-CPU runs
 # the suite paths' solar time (the plane's lon is 0): 07:00, sun up. At
 # the reference's default noon the Noah skin temperature, explicit in the
@@ -162,6 +178,15 @@ PHYS_RTOL = 1e-11                  # the suite's f64 card-vs-CPU runs
 # packages (tests/test_torch_mesoref_slice.py)
 MESOREF_GMT = 7.0
 WATER_RTOL = 1e-10                 # tests/test_torch_mesoref_slice.py
+# the MPAS-A supercell case's namelist dissipation (supercell_2km_cam)
+SUPERCELL_DISSIPATION = dict(config_horiz_mixing="2d_fixed",
+                             config_h_mom_eddy_visc2=500.0,
+                             config_h_theta_eddy_visc2=500.0,
+                             config_v_mom_eddy_visc2=500.0,
+                             config_v_theta_eddy_visc2=500.0,
+                             config_h_mom_eddy_visc4=0.0,
+                             config_h_theta_eddy_visc4=0.0)
+URBAN_CELLS = 9216                 # supercell_2km's columns
 SW_K2_PER_STEP = 4 * 2             # 4 RK stages x (tangential + q pair)
 OCEAN_CELLS = 6336                 # channel_hex_mesh(32, 200, 10 km)
 OCEAN_NZ = 20
@@ -526,21 +551,23 @@ def check_small_varres(device):
     compare_scaled("varres", {w: state_fields(c) for w, c in outs.items()})
 
 
-def supercell_setup(n, nz, scheme="mp_kessler"):
+def supercell_setup(n, nz, scheme="mp_kessler", **cfg_kw):
     """The supercell case on an n x n 2-km periodic mesh, its initial state
     seeded with cloud and rain (moisture.seeded_moisture) so that the
     first steps already run the microphysics' condensation, rain and
     sedimentation. With mp_wsm6 the state carries six species, (qi, qs,
     qg) zero, as tests/test_atm_physics.py widens it; with mp_thompson
     eight, the numbers (nr, ni) at 1e-2 as
-    tests/test_atm_scheme_variants.py widens it."""
+    tests/test_atm_scheme_variants.py widens it. cfg_kw goes to
+    AtmConfig."""
     from mpas_tpu_torch.cores.atmosphere.config import AtmConfig
     from mpas_tpu_torch.cores.atmosphere.init_supercell import init_supercell
     from mpas_tpu_torch.cores.atmosphere.moisture import seeded_moisture
     from mpas_tpu_torch.mesh.planar import planar_hex_mesh
     cfg = AtmConfig(config_dt=12.0, config_nvertlevels=nz,
                     config_len_disp=2000.0, config_xnutr=0.0,
-                    config_microp_scheme=scheme, config_monotonic=True)
+                    config_microp_scheme=scheme, config_monotonic=True,
+                    **cfg_kw)
     grid, state, diag = init_supercell(planar_hex_mesh(n, n, 2000.0), cfg,
                                        case=5)
     sc = seeded_moisture(grid.mesh, state.scalars, seed=7)
@@ -560,6 +587,13 @@ def suite_config(suite):
         config_physics_suite=suite, **{k: "suite" for k in SCHEME_FIELDS}))
 
 
+def cam_config():
+    """The resolved mesoscale_reference suite with CAM radiation in place
+    of RRTMG."""
+    return dataclasses.replace(suite_config("mesoscale_reference"),
+                               config_radiation_scheme="cam")
+
+
 MESOREF_INIT = dict(lsm_scheme="noah")
 CONVPERM_INIT = dict(lsm_scheme="noah", pbl_scheme="mynn")
 
@@ -569,15 +603,16 @@ def suite_runs(label, device, cfg, grid, state, diag, steps,
                gmt_hours=12.0):
     """The same float64 coupled run (physics_step, then srk3_step) on the
     CPU and on the card, through run_steps_with_physics with the resolved
-    suite `pcfg` (a suite's name; None for PhysicsConfig()) from
-    init_physics_state(**init_kw); returns {"cpu": (carry, phys), "cuda":
-    (carry, phys)}."""
+    suite `pcfg` (a suite's name, a PhysicsConfig, or None for
+    PhysicsConfig()) from init_physics_state(**init_kw); returns {"cpu":
+    (carry, phys), "cuda": (carry, phys)}."""
     from mpas_tpu_torch.cores.atmosphere.hooks import run_steps_with_physics
     from mpas_tpu_torch.cores.atmosphere.physics.manager import (
         init_physics_state)
     from mpas_tpu_torch.cores.atmosphere.time_integration import init_carry
     from mpas_tpu_torch.ops.reconstruct import build_reconstruct_coeffs
-    pcfg = None if pcfg is None else suite_config(pcfg)
+    if isinstance(pcfg, str):
+        pcfg = suite_config(pcfg)
     coeffs = torch.from_numpy(build_reconstruct_coeffs(grid.mesh))
     nc, nz = grid.mesh.nCells, grid.vert.nz
     outs = {}
@@ -693,6 +728,137 @@ def check_small_kf(device):
                       init_kw={}, gmt_hours=MESOREF_GMT)
     compare_scaled("supercell Kain-Fritsch + WSM6",
                    {w: suite_fields(*o) for w, o in outs.items()}, PHYS_RTOL)
+
+
+def check_small_cam(device):
+    """Phase 4: 6 f64 coupled steps of the supercell with WSM6 and the
+    mesoscale_reference suite under CAM radiation, with the supercell
+    namelist's dissipation (2d_fixed, vertical eddy viscosities), at
+    MESOREF_GMT, card vs CPU."""
+    outs = suite_runs("supercell CAM suite + WSM6 + 2d_fixed", device,
+                      *supercell_setup(12, 16, "mp_wsm6",
+                                       **SUPERCELL_DISSIPATION), 6,
+                      pcfg=cam_config(), gmt_hours=MESOREF_GMT)
+    fields = {w: suite_fields(*o) for w, o in outs.items()}
+    for where, f in fields.items():
+        require(f["glw"].min() > 0.0, f"no downward longwave on {where}")
+    compare_scaled("supercell CAM suite + WSM6 + 2d_fixed", fields,
+                   PHYS_RTOL)
+
+
+def check_small_jw_options(device, mesh8):
+    """Phase 4: 3 f64 JW steps on the 642-cell sphere with Rayleigh
+    damping of u and both vertical eddy viscosities, card vs CPU."""
+    outs = atm_runs("JW rayleigh_damp_u + v_eddy_visc2", device,
+                    *jw_setup(mesh8, 10, 1200.0, 960000.0,
+                              config_rayleigh_damp_u=True,
+                              config_v_mom_eddy_visc2=500.0,
+                              config_v_theta_eddy_visc2=500.0), 3)
+    compare_scaled("JW rayleigh_damp_u + v_eddy_visc2",
+                   {w: state_fields(c) for w, c in outs.items()}, PHYS_RTOL)
+
+
+def column_inputs(n, nz, seed):
+    """Float64 columns from a seed (numpy): a 16-km sounding with random
+    layer depths, latitudes, cloud water in 40% of the cells, a surface
+    warmer or colder than the air, the sun up in 2/3 of the columns."""
+    rng = np.random.default_rng(seed)
+    dz = rng.uniform(250.0, 550.0, (n, nz))
+    z_int = np.concatenate([np.zeros((n, 1)), np.cumsum(dz, 1)], 1)
+    z = 0.5 * (z_int[:, 1:] + z_int[:, :-1])
+    t = 300.0 - 0.0065 * z + 0.3 * rng.standard_normal((n, nz))
+    p = 1.0e5 * np.exp(-z / 8000.0)
+    qsat = 0.622 * 611.2 * np.exp(17.67 * (t - 273.15) / (t - 29.65)) / p
+    return dict(
+        dz=dz, z_int=z_int, z=z, t=t, p=p, rho=p / (287.0 * t),
+        qv=rng.uniform(0.3, 0.95, (n, nz)) * qsat,
+        qc=np.where(rng.uniform(size=(n, nz)) < 0.4,
+                    5e-4 * rng.uniform(size=(n, nz)), 0.0),
+        tsk=t[:, 0] + rng.uniform(-5.0, 5.0, n),
+        mu=np.where(np.arange(n) % 3 == 0, 0.0, rng.uniform(0.05, 1.0, n)),
+        lat=rng.uniform(-1.5, 1.5, n),
+        u=rng.uniform(-8.0, 14.0, (n, nz)), v=rng.uniform(-8.0, 8.0, (n, nz)))
+
+
+def on_both(device, fn, arrays, names, **kw):
+    """fn on float64 tensors of `arrays` on the CPU and on the card:
+    {"cpu": {name: output as numpy}, "cuda": ...}; the outputs of a tuple
+    take `names`, a dict's and a dataclass's their own."""
+    outs = {}
+    for where, dev in (("cpu", torch.device("cpu")), ("cuda", device)):
+        out = fn(*[torch.as_tensor(a, dtype=torch.float64, device=dev)
+                   for a in arrays], **kw)
+        flat = {}
+        for name, o in zip(names, out if isinstance(out, tuple) else [out]):
+            if isinstance(o, dict):
+                flat.update(o)
+            elif dataclasses.is_dataclass(o):
+                flat.update({f.name: getattr(o, f.name)
+                             for f in dataclasses.fields(o)})
+            else:
+                flat[name] = o
+        outs[where] = {k: v.cpu().numpy() for k, v in flat.items()}
+    return outs
+
+
+def check_rrtmg_o3(device):
+    """Phase 4: rrtmg_lw and rrtmg_sw with an o3_climatology profile on
+    9,216 f64 columns of 40 levels, card vs CPU."""
+    from mpas_tpu_torch.cores.atmosphere.physics import o3, rrtmg
+    c = column_inputs(URBAN_CELLS, 40, 61)
+    lw = on_both(device, lambda lat, p, *a: rrtmg.rrtmg_lw(
+        *a, o3_vmr=o3.o3_climatology(lat, p)),
+        [c[k] for k in ("lat", "p", "t", "qv", "qc", "rho", "dz", "tsk")],
+        ("lw dtdt", "glw", "olr"))
+    compare_scaled("rrtmg_lw with o3_climatology", lw, PHYS_RTOL)
+    sw = on_both(device, lambda lat, p, *a: rrtmg.rrtmg_sw(
+        *a, o3_vmr=o3.o3_climatology(lat, p)),
+        [c[k] for k in ("lat", "p", "qv", "qc", "rho", "dz", "mu")],
+        ("sw dtdt", "gsw"))
+    compare_scaled("rrtmg_sw with o3_climatology", sw, PHYS_RTOL)
+
+
+def check_urban_oml(device):
+    """Phase 4: 10 chained slucm_step calls (the commercial URBPARM row,
+    rain in a third of the columns, a solar azimuth), bep_column_drag,
+    bep_heat_sources and oml_step on 9,216 f64 columns, card vs CPU."""
+    from mpas_tpu_torch.cores.atmosphere.physics import oml, urban
+    n = URBAN_CELLS
+    c = column_inputs(n, 12, 62)
+    rng = np.random.default_rng(63)
+    forcing = [c["t"][:, 0], rng.uniform(0.2, 12.0, n),
+               900.0 * c["mu"], rng.uniform(280.0, 420.0, n), c["mu"],
+               c["qv"][:, 0], np.where(np.arange(n) % 3 == 1, 4.0, 0.0),
+               rng.uniform(-np.pi, np.pi, n)]
+
+    def slucm(*f):
+        st = urban.init_urban_state(n, dtype=torch.float64,
+                                    device=f[0].device)
+        for _ in range(10):
+            st, diag = urban.slucm_step(
+                st, *f[:5], 60.0, hour_utc=15.5,
+                params=urban.URBPARM_TABLE[3], qa=f[5], rain_mmh=f[6],
+                sin_az=f[7])
+        return st, diag
+    compare_scaled("slucm_step x 10",
+                   on_both(device, slucm, forcing, ("state", "diag")),
+                   PHYS_RTOL)
+    z_mid = 0.5 * (c["z_int"][:, 1:] + c["z_int"][:, :-1]) * 0.1
+    compare_scaled("bep_column_drag", on_both(
+        device, urban.bep_column_drag, [c["u"], c["v"], z_mid],
+        ("bep u", "bep v", "bep tke"), dt=60.0,
+        height_bins=(6.0, 12.0, 24.0, 40.0),
+        height_fractions=(0.4, 0.3, 0.2, 0.1)), PHYS_RTOL)
+    ts = [rng.uniform(285.0, 320.0, n) for _ in range(3)]
+    compare_scaled("bep_heat_sources", on_both(
+        device, urban.bep_heat_sources, [c["z_int"] * 0.1, *ts, c["t"]],
+        ("bep heating",), uc=2.5), PHYS_RTOL)
+    compare_scaled("oml_step", on_both(
+        device, oml.oml_step,
+        [rng.uniform(285.0, 302.0, n), rng.uniform(3.0, 80.0, n),
+         rng.uniform(-50.0, 150.0, n), rng.uniform(0.0, 300.0, n),
+         rng.uniform(0.0, 900.0, n), rng.uniform(300.0, 420.0, n),
+         rng.uniform(0.0, 0.8, n)], ("tml", "h_ml"), dt=600.0), PHYS_RTOL)
 
 
 def deep_unstable_columns(n, seed=41):
@@ -852,24 +1018,46 @@ def run_supercell_path(device, card):
     return cfg, grid, carry, counts
 
 
-def kernel_census(fn):
+def kernel_census(fn, module=None, regions=()):
     """(fn(), kernels, device busy ms) of one call of fn under
     torch.profiler: every kernel the call launched and the sum of their
-    device times."""
+    device times. With `regions`, functions of `module` wrapped in a
+    record_function span for the call: a fourth item maps each to the
+    device ms of the kernels it launched."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def spanned(region, f):
+        def call(*args, **kwargs):
+            with record_function(region):
+                return f(*args, **kwargs)
+        return call
+    saved = [(n, getattr(module, n)) for n in regions]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    return (out, sum(e.count for e in kern),
-            sum(e.self_device_time_total for e in kern) / 1e3)
+    try:
+        for n, f in saved:
+            setattr(module, n, spanned(n, f))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+    finally:
+        for n, f in saved:
+            setattr(module, n, f)
+    events = prof.key_averages()
+    kern = [e for e in events if e.device_type == DeviceType.CUDA
+            and e.key not in regions]
+    census = (out, sum(e.count for e in kern),
+              sum(e.self_device_time_total for e in kern) / 1e3)
+    if not regions:
+        return census
+    return census + ({e.key: e.device_time_total / 1e3 for e in events
+                      if e.key in regions
+                      and e.device_type == DeviceType.CPU},)
 
 
-def run_physics_path(device, card, name, scheme, pcfg, init_kw):
+def run_physics_path(device, card, name, scheme, pcfg, init_kw,
+                     cfg_kw=None, regions=None):
     """Phase 5, supercell_2km (bench.py:104-119) with `scheme`
     microphysics and a physics suite (`pcfg`, None for PhysicsConfig())
     before every dynamics step, in float32, at MESOREF_GMT, through
@@ -879,8 +1067,10 @@ def run_physics_path(device, card, name, scheme, pcfg, init_kw):
     steps; the launch counters are zeroed just before init_carry and read
     after every step. Then one step under the profiler for the kernels and
     device busy ms a step. Gates: 12 K1 and K2_PER_STEP[name] K2 every
-    step, finite fields, dry mass, species >= 0. Returns a dict of the run
-    (cfg, grid, carry, phys, coeffs, pcfg, counts, step)."""
+    step, finite fields, dry mass, species >= 0. cfg_kw goes to AtmConfig;
+    regions = (module, names): the profiled step also reports the device
+    ms of each named function's kernels. Returns a dict of the run (cfg,
+    grid, carry, phys, coeffs, pcfg, counts, step, ms, peak_gb)."""
     from mpas_tpu_torch import kernels
     from mpas_tpu_torch.cores.atmosphere.hooks import run_steps_with_physics
     from mpas_tpu_torch.cores.atmosphere.moisture import (RHO_WATER,
@@ -891,7 +1081,8 @@ def run_physics_path(device, card, name, scheme, pcfg, init_kw):
     from mpas_tpu_torch.ops.reconstruct import build_reconstruct_coeffs
     f32 = torch.float32
     t0 = time.perf_counter()
-    cfg, grid, state, diag = supercell_setup(96, 40, scheme)
+    cfg, grid, state, diag = supercell_setup(96, 40, scheme,
+                                             **(cfg_kw or {}))
     coeffs = build_reconstruct_coeffs(grid.mesh)
     host_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -976,12 +1167,16 @@ def run_physics_path(device, card, name, scheme, pcfg, init_kw):
           f"min glw after the warm step {glw_min:.3f} W/m2")
     require(drift <= 1e-5, f"{name}: dry mass not conserved: {drift:.3e}")
     require(float(sc[..., :6].min()) >= 0.0, f"{name}: a negative species")
-    _, n_kern, busy = kernel_census(lambda: step(carry, phys))
+    census = kernel_census(lambda: step(carry, phys), *(regions or ()))
+    n_kern, busy = census[1:3]
     print(f"{name} one profiled step on {card}: {n_kern} kernels, device "
           f"busy {busy:.3f} ms ({100.0 * (1.0 - busy / ms):.1f}% idle "
-          f"against the timed {ms:.2f} ms/step)")
+          f"against the timed {ms:.2f} ms/step)"
+          + "".join(f"; {k} {v:.3f} ms" for k, v in
+                    (census[3].items() if regions else ())))
     return dict(cfg=cfg, grid=grid, carry=carry, phys=phys, coeffs=coeffs,
-                pcfg=pcfg, counts=counts, step=step, glw_min=glw_min)
+                pcfg=pcfg, counts=counts, step=step, glw_min=glw_min, ms=ms,
+                peak_gb=peak_gb)
 
 
 def run_mesoref_path(device, card):
@@ -1000,6 +1195,77 @@ def run_mesoref_path(device, card):
     require(run["glw_min"] > 0.0, f"{name}: no downward longwave after the "
             "radiation call")
     return run
+
+
+def run_cam_path(device, card):
+    """Phase 5, supercell_2km_cam: supercell_2km_mesoref with CAM
+    radiation in place of RRTMG and the supercell namelist's dissipation
+    (2d_fixed, horizontal and vertical eddy viscosities of 500 m^2/s, no
+    del4); the same gates, and cam_lw's and cam_sw's device ms in the
+    profiled step."""
+    from mpas_tpu_torch.cores.atmosphere.physics import cam_radiation
+    name = "supercell_2km_cam"
+    run = run_physics_path(device, card, name, "mp_wsm6", cam_config(),
+                           MESOREF_INIT, cfg_kw=SUPERCELL_DISSIPATION,
+                           regions=(cam_radiation, ("cam_lw", "cam_sw")))
+    carry, phys = run["carry"], run["phys"]
+    cfg = run["cfg"]
+    require((cfg.config_horiz_mixing, cfg.config_v_mom_eddy_visc2,
+             cfg.config_v_theta_eddy_visc2)
+            == ("2d_fixed", 500.0, 500.0), f"{name}: not the namelist's "
+            "dissipation")
+    require(float(carry.rainnc.max()) > 0.0, f"{name}: no rain reached "
+            "the ground")
+    require(float(phys.tsk.std()) > 0.0, f"{name}: tsk did not move")
+    require(run["glw_min"] > 0.0, f"{name}: no downward longwave after the "
+            "radiation call")
+    print(f"{name}: max rainnc {float(carry.rainnc.max()):.4e} m, tsk in "
+          f"[{float(phys.tsk.min()):.3f}, {float(phys.tsk.max()):.3f}] K, "
+          f"gsw in [{float(phys.gsw.min()):.3f}, "
+          f"{float(phys.gsw.max()):.3f}] W/m2")
+    return run
+
+
+DIAG_NAMES = ("isobaric", "convective", "pv", "reflectivity")
+
+
+def check_diagnostics(label, device, grid, state, diag, names):
+    """Phase 5d: the diagnostics manager's `names` on a path's final f32
+    state: once in f32 on the card (timed), then in f64 from that state on
+    the card and on the CPU, held at PHYS_RTOL x max with the same NaN
+    positions."""
+    from mpas_tpu_torch.cores.atmosphere.diagnostics.manager import (
+        DiagnosticsManager)
+
+    def run(dev, dtype):
+        g, s, d = grid.to(dev, dtype), state.to(dev, dtype), \
+            diag.to(dev, dtype)
+        dm = DiagnosticsManager({n: 3600.0 for n in names})
+        dm.init()
+        t0 = time.perf_counter()
+        dm.compute_all(g, g.mesh, s, d)
+        return dm.history, time.perf_counter() - t0
+    _, f32_s = run(device, torch.float32)
+    hist = {w: run(dev, torch.float64)[0]
+            for w, dev in (("cpu", torch.device("cpu")), ("cuda", device))}
+    for n in names:
+        ref, got = hist["cpu"][n][0][1], hist["cuda"][n][0][1]
+        require(sorted(ref) == sorted(got), n)
+        for k in ref:
+            nan = np.isnan(ref[k])
+            require(np.array_equal(nan, np.isnan(got[k])),
+                    f"{label} {n}.{k}: NaN positions differ")
+            fin = ~nan
+            scale = float(np.abs(ref[k][fin]).max()) if fin.any() else 0.0
+            err = float(np.abs(got[k][fin] - ref[k][fin]).max()) \
+                if fin.any() else 0.0
+            print(f"  {label} {n}.{k} {ref[k].shape}: cuda vs cpu max abs "
+                  f"err {err:.3e} (max|cpu| {scale:.3e}); "
+                  f"{int(nan.sum())} NaN")
+            require(err <= PHYS_RTOL * scale,
+                    f"{label} {n}.{k}: the card departs from the CPU")
+    print(f"{label} diagnostics {', '.join(names)}: f32 on the card "
+          f"{f32_s:.3f} s (host copies included)")
 
 
 def run_convperm_path(device, card):
@@ -1697,12 +1963,16 @@ def profile_physics(name, run, out_dir):
     the microphysics and the dycore calls; then physics_step alone."""
     from mpas_tpu_torch.cores.atmosphere import time_integration as ti
     from mpas_tpu_torch.cores.atmosphere.physics import (
-        cldfra3, convection, driver, gf, gwdo, manager, mynn, mynn_sfc,
-        radiation, rrtmg, sfclay, tiedtke, ysu)
+        cam_radiation, cldfra3, convection, driver, gf, gwdo, manager, mynn,
+        mynn_sfc, radiation, rrtmg, sfclay, tiedtke, ysu)
     schemes = {
         "supercell_2km_mesoref": (
             (rrtmg, ("rrtmg_lw", "rrtmg_sw")), (cldfra3, ("cal_cldfra3",)),
             (gwdo, ("gwdo",)), (tiedtke, ("tiedtke",)), (ysu, ("ysu",))),
+        "supercell_2km_cam": (
+            (cam_radiation, ("cam_lw", "cam_sw")),
+            (cldfra3, ("cal_cldfra3",)), (gwdo, ("gwdo",)),
+            (tiedtke, ("tiedtke",)), (ysu, ("ysu",))),
         "supercell_2km_convperm": (
             (rrtmg, ("rrtmg_lw", "rrtmg_sw")), (cldfra3, ("cal_cldfra3",)),
             (gwdo, ("gwdo",)), (gf, ("gf_convection",)), (mynn, ("mynn",)),
@@ -1975,7 +2245,8 @@ def main():
                         help="also profile 3 steps of jw_120km, "
                              "sw_tc5_120km, supercell_2km, "
                              "supercell_2km_mesoref, supercell_2km_convperm, "
-                             "supercell_2km_kf, jw_var60_15, "
+                             "supercell_2km_kf, supercell_2km_cam, "
+                             "jw_var60_15, "
                              "ocean_channel_10km and the two 4-way paths; "
                              "the kernel tables go to "
                              "DIR/profile_<path>.txt")
@@ -2012,6 +2283,12 @@ def main():
     timed("small f64 supercell convperm + Thompson", check_small_convperm,
           device)
     timed("small f64 supercell Kain-Fritsch + WSM6", check_small_kf, device)
+    timed("small f64 supercell CAM suite + WSM6 + 2d_fixed", check_small_cam,
+          device)
+    timed("small f64 JW rayleigh_damp_u + v_eddy_visc2",
+          check_small_jw_options, device, mesh8)
+    timed("f64 rrtmg with o3_climatology", check_rrtmg_o3, device)
+    timed("f64 urban and slab ocean", check_urban_oml, device)
     timed("small f64 kf_eta deep columns", check_kf_column, device)
     timed("small f64 ocean", check_small_ocean, device)
     timed("small f64 sharded, loopback", check_small_sharded, device, mesh8)
@@ -2029,6 +2306,7 @@ def main():
             "jw_120km built the wrong size")
     if args.profile:
         profile_srk3("jw_120km", cfg, grid, carry, args.profile)
+    jw_final = (grid, carry.state, carry.diag)     # for phase 5d
     jw_ref = {k: getattr(carry.state, k).cpu().numpy() for k, _ in ATM_FIELDS}
     counts["jw_120km_4way"], flat_nc, jw4_step = timed(
         "jw_120km_4way", run_sharded_jw_path, device, card, jw[6], jw_ref,
@@ -2065,11 +2343,14 @@ def main():
     del grid, carry
     for name, path in (("supercell_2km_mesoref", run_mesoref_path),
                        ("supercell_2km_convperm", run_convperm_path),
-                       ("supercell_2km_kf", run_kf_path)):
+                       ("supercell_2km_kf", run_kf_path),
+                       ("supercell_2km_cam", run_cam_path)):
         run = timed(name, path, device, card)
         counts[name] = run["counts"]
         if args.profile:
             profile_physics(name, run, args.profile)
+        if name == "supercell_2km_cam":
+            cam_final = (run["grid"], run["carry"].state, run["carry"].diag)
         del run
     cfg, grid, carry, counts["jw_var60_15"] = timed(
         "jw_var60_15", run_var_path, device, card)
@@ -2101,6 +2382,13 @@ def main():
         "shapes", check_kernels, device, (),
         (("ocean_channel_10km_4way", flat_nc, ((6, 6, 1), (6, 6, 20),
                                                (6, 6, 40))),)))
+
+    # phase 5d: the diagnostics on two paths' final states
+    timed("diagnostics on supercell_2km_cam", check_diagnostics,
+          "supercell_2km_cam", device, *cam_final, DIAG_NAMES)
+    timed("diagnostics on jw_120km", check_diagnostics, "jw_120km", device,
+          *jw_final, DIAG_NAMES[:3])
+    del cam_final, jw_final
 
     # phase 6: the command line in this process, its mesh cache seeded
     saved_cache = os.environ.get("MPAS_TPU_TORCH_CACHE")

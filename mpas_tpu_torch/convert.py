@@ -1,8 +1,9 @@
 """Carry a state across from the reference package.
 
 The input is the reference's `AtmGrid`/`AtmState`/`AtmDiag`/`AtmCarry`,
-`PhysicsState`, `SWState`, `OcnGrid`/`OcnState`/`OcnSurfaceForcing` or `ShardedMesh`
-flattened to nested dicts of numpy arrays plus their static ints and
+`PhysicsState`, `UrbanState`, `SWState`,
+`OcnGrid`/`OcnState`/`OcnSurfaceForcing` or `ShardedMesh` flattened to
+nested dicts of numpy arrays plus their static ints and
 floats (nCells, nz, cf1..3, adv_beta, sphere_radius, ...): the same field
 names, no JAX types. The reconstruction coefficients are a plain array
 (torch.from_numpy). Fields the port does not carry (the indexed advection stencil)
@@ -20,6 +21,7 @@ import torch
 from mpas_tpu_torch.cores.atmosphere.setup import AtmGrid, VerticalGrid
 from mpas_tpu_torch.cores.atmosphere.state import AtmDiag, AtmState
 from mpas_tpu_torch.cores.atmosphere.physics.manager import PhysicsState
+from mpas_tpu_torch.cores.atmosphere.physics.urban import UrbanState
 from mpas_tpu_torch.cores.atmosphere.time_integration import AtmCarry
 from mpas_tpu_torch.cores.ocean.forcing import OcnSurfaceForcing
 from mpas_tpu_torch.cores.ocean.state import OcnGrid, OcnState
@@ -74,6 +76,11 @@ def physics_state_from_arrays(d) -> PhysicsState:
     soil column in slab mode, the sea-ice and glacier masks, ...) stay
     None."""
     return _build(PhysicsState, d)
+
+
+def urban_state_from_arrays(d) -> UrbanState:
+    """A flattened reference UrbanState (the same ten fields)."""
+    return _build(UrbanState, d)
 
 
 def sw_state_from_arrays(d) -> SWState:

@@ -38,6 +38,8 @@ from mpas_tpu_torch.ops.stencils import (tangential_cell_assembled,
                                          trisk_q_cell_assembled)
 from mpas_tpu_torch.ops.vscan import thomas_prefactor
 
+SECONDS_PER_DAY = 86400.0
+
 RCV = rgas / (cp - rgas)
 C2 = cp * RCV
 
@@ -178,14 +180,15 @@ class EulerTends(NamedTuple):
     tend_rho: Any
 
 
-def _check_ported_config(cfg: AtmConfig):
-    unported = {"config_v_mom_eddy_visc2": cfg.config_v_mom_eddy_visc2 > 0.0,
-                "config_v_theta_eddy_visc2":
-                    cfg.config_v_theta_eddy_visc2 > 0.0,
-                "config_rayleigh_damp_u": cfg.config_rayleigh_damp_u}
-    on = [k for k, v in unported.items() if v]
-    if on:
-        raise NotImplementedError(f"not ported: {', '.join(on)}")
+def _vertical_laplacian(f, zgrid):
+    """d2f/dz2 at the interior levels on the layer midpoints of zgrid
+    (nz+1 interfaces), zero at the bottom and top levels."""
+    zmid = 0.5 * (zgrid[:, :-1] + zgrid[:, 1:])
+    dzp = zmid[:, 2:] - zmid[:, 1:-1]
+    dzm = zmid[:, 1:-1] - zmid[:, :-2]
+    lap = ((f[:, 2:] - f[:, 1:-1]) / dzp
+           - (f[:, 1:-1] - f[:, :-2]) / dzm) / (0.5 * (dzp + dzm))
+    return F.pad(lap, (1, 1))
 
 
 def compute_moist_coefficients(grid: AtmGrid, scalars):
@@ -212,7 +215,6 @@ def compute_dyn_tend(grid: AtmGrid, cfg: AtmConfig, rk_step: int, dt,
     Returns (tend_u, tend_rho, tend_theta, tend_w_raw, h_divergence,
     euler); tend_w_raw is the physical-w tendency before the omega
     conversion of set_smlstep_pert_variables."""
-    _check_ported_config(cfg)
     mesh = grid.mesh
     vg = grid.vert
     nz = vg.nz
@@ -319,16 +321,36 @@ def compute_dyn_tend(grid: AtmGrid, cfg: AtmConfig, rk_step: int, dt,
                 * _slot_sum(eoc, w_d4, dsw) * inva
         tend_w_euler[:, 0] = 0.0
         tend_w_euler[:, nz] = 0.0
+        if cfg.config_v_mom_eddy_visc2 > 0.0:
+            # vertical u mixing (ref :4950)
+            zgrid_e = 0.5 * (grid.zgrid[c1] + grid.zgrid[c2])  # (nE, nz+1)
+            tend_u_euler = tend_u_euler + diag.rho_edge \
+                * cfg.config_v_mom_eddy_visc2 * _vertical_laplacian(
+                    u, zgrid_e)
         if h_theta_visc4 > 0.0:
             # theta del4 (ref :5272-5310)
             dst = (delsq_theta[c2] - delsq_theta[c1]) * dvdc
             tend_theta_euler = tend_theta_euler - h_theta_visc4 \
                 * _slot_sum(eoc, w_d4, dst) * inva
+        if cfg.config_v_theta_eddy_visc2 > 0.0:
+            # vertical theta mixing (ref :5342-5381)
+            tend_theta_euler = tend_theta_euler \
+                + cfg.config_v_theta_eddy_visc2 * rho_zz \
+                * _vertical_laplacian(theta_m, grid.zgrid)
     else:
         tend_u_euler = euler.tend_u_euler
         tend_w_euler = euler.tend_w_euler
         tend_theta_euler = euler.tend_theta_euler
 
+    if cfg.config_rayleigh_damp_u:
+        # Rayleigh damping of u over the top levels, every RK stage
+        nlev = cfg.config_number_rayleigh_damp_u_levels
+        coef_inv = 1.0 / (nlev * cfg.config_rayleigh_damp_u_timescale_days
+                          * SECONDS_PER_DAY)
+        kk = torch.arange(nz, device=u.device, dtype=u.dtype)
+        coef = torch.where(kk >= nz - nlev, (kk - (nz - nlev - 1)) * coef_inv,
+                           0.0)
+        tend_u = tend_u - diag.rho_edge * u * coef
     tend_u = tend_u + tend_u_euler
 
     # --- w tendency (ref :5017-5233) ----------------------------------------
@@ -384,6 +406,12 @@ def compute_dyn_tend(grid: AtmGrid, cfg: AtmConfig, rk_step: int, dt,
         tend_w_euler = tend_w_euler - pgrad
         tend_w_euler[:, 0] = 0.0
         tend_w_euler[:, nz] = 0.0
+        if cfg.config_v_mom_eddy_visc2 > 0.0:  # (ref :5212-5222)
+            lap = F.pad((w[:, 2:] - w[:, 1:-1]) * rdzw[1:]
+                        - (w[:, 1:-1] - w[:, :-2]) * rdzw[:-1], (1, 1)) * rdzu
+            rho_pair = F.pad(0.5 * (rho_zz[:, 1:] + rho_zz[:, :-1]), (1, 1))
+            tend_w_euler = tend_w_euler + cfg.config_v_mom_eddy_visc2 \
+                * rho_pair * lap
 
     tend_w = tend_w + tend_w_euler
 

@@ -21,7 +21,7 @@ YSU, GWDO, RRTMG-class k-distribution radiation, cldfra3, the MM5 surface
 layer, Noah), the convection_permitting suite (Thompson in the dycore,
 Grell-Freitas, the MYNN PBL and surface layer, with the same radiation,
 cldfra3, GWDO and Noah), Kain-Fritsch, and the broadband radiation and
-slab LSM branches. CAM radiation raises NotImplementedError.
+slab LSM branches, and CAM radiation (config_radiation_scheme="cam").
 """
 
 from __future__ import annotations
@@ -34,7 +34,8 @@ import torch
 
 from mpas_tpu_torch.constants import cp, p0, rgas, rvord
 from mpas_tpu_torch.containers import resolve_device, to_device
-from mpas_tpu_torch.cores.atmosphere.physics import (cldfra3, convection,
+from mpas_tpu_torch.cores.atmosphere.physics import (cam_radiation,
+                                                     cldfra3, convection,
                                                      gf, gwdo, lsm, mynn,
                                                      mynn_sfc, noah,
                                                      radiation, rrtmg,
@@ -105,15 +106,6 @@ def resolve_suite(cfg: PhysicsConfig) -> PhysicsConfig:
     return dataclasses.replace(cfg, **updates) if updates else cfg
 
 
-def _check_ported(cfg: PhysicsConfig):
-    """Refuse the one branch of physics_step whose scheme is not ported."""
-    if cfg.config_radiation_scheme == "cam":
-        raise NotImplementedError(
-            "physics_step: config_radiation_scheme='cam' runs CAM "
-            "radiation, which is not ported (it waits for "
-            "physics/cam_radiation.py)")
-
-
 @dataclasses.dataclass(frozen=True)
 class PhysicsState:
     """Per-cell surface/physics state carried between steps
@@ -182,7 +174,6 @@ def physics_step(grid, cfg: PhysicsConfig, mesh, recon_coeffs,
 
     Ordering ref: physics_driver (mpas_atmphys_driver.F:208-330)."""
     cfg = resolve_suite(cfg)
-    _check_ported(cfg)
     m = mesh
     nsc = state.scalars.shape[-1]
     qv = torch.clamp(state.scalars[..., 0], min=0.0)
@@ -224,6 +215,11 @@ def physics_step(grid, cfg: PhysicsConfig, mesh, recon_coeffs,
     if cfg.config_radiation_scheme == "kdist":
         lw_tend, glw, _olr = rrtmg.rrtmg_lw(t, qv, qc, rho, dz, phys.tsk)
         sw_tend, gsw = rrtmg.rrtmg_sw(qv, qc, rho, dz, mu, cfg.albedo)
+    elif cfg.config_radiation_scheme == "cam":
+        lw_tend, glw, _olr = cam_radiation.cam_lw(t, qv, qc, rho, dz,
+                                                  phys.tsk)
+        sw_tend, gsw = cam_radiation.cam_sw(qv, qc, rho, dz, mu, cfg.albedo,
+                                            t=t)
     else:
         lw_tend, glw, _olr = radiation.radiation_lw(t, qv, qc, rho, dz,
                                                     phys.tsk)

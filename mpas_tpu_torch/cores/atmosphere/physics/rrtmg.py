@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from mpas_tpu_torch.constants import cp
+from mpas_tpu_torch.cores.atmosphere.physics import o3
 
 _SB = 5.67e-8
 _S0 = 1361.0
@@ -175,10 +176,6 @@ def _planck_band_fraction(t, nu, dnu, w):
 
 def _gas_paths(t, qv, rho, dz, co2_ppv, o3_vmr):
     """Per-gas mass paths (kg/m2 per layer) and the layer pressure."""
-    if o3_vmr is not None:
-        raise NotImplementedError(
-            "rrtmg: an ozone profile (o3_vmr) needs physics/o3.py, which is "
-            "not ported; physics_step passes none")
     nz = qv.shape[1]
     path_a = rho * dz
     paths = {"h2o": path_a * qv,
@@ -190,11 +187,14 @@ def _gas_paths(t, qv, rho, dz, co2_ppv, o3_vmr):
     # module_ra_rrtmg_lw.F taumol)
     p_tmp = rho * 287.0 * t
     paths["h2oc"] = path_a * qv * (qv * p_tmp / 0.622 / 1000.0)
-    # midlatitude column proxy concentrated aloft
-    o3_w = torch.zeros(nz, dtype=qv.dtype, device=qv.device)
-    o3_w[3 * nz // 4:] = 1.0
-    o3_w = o3_w / torch.clamp(torch.sum(o3_w), min=1.0)
-    paths["o3"] = 6.5e-6 * o3_w[None, :] * torch.ones_like(qv[:, :1])
+    if o3_vmr is not None:
+        paths["o3"] = o3.o3_path(rho, dz, o3_vmr)
+    else:
+        # midlatitude column proxy concentrated aloft
+        o3_w = torch.zeros(nz, dtype=qv.dtype, device=qv.device)
+        o3_w[3 * nz // 4:] = 1.0
+        o3_w = o3_w / torch.clamp(torch.sum(o3_w), min=1.0)
+        paths["o3"] = 6.5e-6 * o3_w[None, :] * torch.ones_like(qv[:, :1])
     p = rho * 287.0 * t
     return paths, p
 

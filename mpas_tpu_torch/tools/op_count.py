@@ -2,14 +2,18 @@
 
     python -m mpas_tpu_torch.tools.op_count [--n 12] [--nz 40] [--device cpu]
 
-For kf_eta and for one physics_step under each suite (PhysicsConfig(),
-mesoscale_reference, convection_permitting) on the n x n, nz-level
-supercell in float64: the number of aten calls that torch.profiler
+For kf_eta, for one physics_step under each suite (PhysicsConfig(),
+mesoscale_reference, convection_permitting, and mesoscale_reference with
+CAM radiation), and for cam_lw and cam_sw alone on the inputs that
+physics_step gives them, on the n x n, nz-level supercell in float64
+(six species, the seeded cloud): the number of aten calls that
+torch.profiler
 records, less the view and shape calls (which launch nothing). Each
 counted call launches about one kernel on a card, so a count taken on the
 CPU predicts a card's kernels a step before a card run; it is a count,
-not a device number. It does not depend on n. The device defaults to
-cuda:0.
+not a device number. It does not depend on n. For cam_lw and cam_sw it
+also reckons the bytes a call moves per cell (count_bytes), which scales
+with the cells. The device defaults to cuda:0.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ from mpas_tpu_torch.containers import resolve_device
 from mpas_tpu_torch.cores.atmosphere.config import AtmConfig
 from mpas_tpu_torch.cores.atmosphere.init_supercell import init_supercell
 from mpas_tpu_torch.cores.atmosphere.moisture import seeded_moisture
-from mpas_tpu_torch.cores.atmosphere.physics import kfeta, manager
+from mpas_tpu_torch.cores.atmosphere.physics import (cam_radiation, kfeta,
+                                                     manager)
 from mpas_tpu_torch.cores.atmosphere.time_integration import init_carry
 from mpas_tpu_torch.mesh.planar import planar_hex_mesh
 from mpas_tpu_torch.ops import reconstruct as recon
@@ -48,6 +53,36 @@ def count_ops(fn) -> int:
         fn()
     return sum(e.count for e in prof.key_averages()
                if e.key.startswith("aten::") and e.key not in NO_KERNEL)
+
+
+def count_bytes(fn) -> float:
+    """Bytes that one call of fn reads and writes, in float32 terms: over
+    the outermost aten calls that launch a kernel, the elements of every
+    tensor input, plus the output's: the inputs' broadcast shape, or the
+    largest input where they do not broadcast (a reduction, a cat), at 4
+    bytes each. A reckoning from shapes, not a device number: it ignores
+    caches and counts a broadcast input at its own size."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        fn()
+    total = 0
+    for e in prof.events():
+        parent = e.cpu_parent
+        if (not e.name.startswith("aten::") or e.name in NO_KERNEL
+                or (parent is not None and parent.name.startswith("aten::"))):
+            continue
+        shapes = [tuple(shape) for shape in e.input_shapes
+                  if isinstance(shape, (list, tuple)) and shape
+                  and all(isinstance(d, int) for d in shape)]
+        if not shapes:
+            continue
+        try:
+            out = math.prod(torch.broadcast_shapes(*shapes))
+        except RuntimeError:
+            out = max(math.prod(shape) for shape in shapes)
+        total += sum(math.prod(shape) for shape in shapes) + out
+    return 4.0 * total
 
 
 def kf_eta_inputs(grid, state, diag, coeffs):
@@ -76,11 +111,34 @@ def suites():
         return manager.resolve_suite(manager.PhysicsConfig(
             config_physics_suite=suite,
             **{k: "suite" for k in manager.SCHEME_FIELDS}))
+    mesoref = resolved("mesoscale_reference")
     return (("PhysicsConfig() (Kain-Fritsch)", manager.PhysicsConfig(), {}),
-            ("mesoscale_reference", resolved("mesoscale_reference"),
-             dict(lsm_scheme="noah")),
+            ("mesoscale_reference", mesoref, dict(lsm_scheme="noah")),
             ("convection_permitting", resolved("convection_permitting"),
-             dict(lsm_scheme="noah", pbl_scheme="mynn")))
+             dict(lsm_scheme="noah", pbl_scheme="mynn")),
+            ("mesoscale_reference + CAM",
+             dataclasses.replace(mesoref, config_radiation_scheme="cam"),
+             dict(lsm_scheme="noah")))
+
+
+def recorded_calls(module, names, fn):
+    """Run fn() with the functions `names` of `module` recording their
+    (args, kwargs); returns {name: (args, kwargs)} of their last call."""
+    calls, saved = {}, {n: getattr(module, n) for n in names}
+
+    def recorder(name, f):
+        def call(*a, **k):
+            calls[name] = (a, k)
+            return f(*a, **k)
+        return call
+    try:
+        for n, f in saved.items():
+            setattr(module, n, recorder(n, f))
+        fn()
+    finally:
+        for n, f in saved.items():
+            setattr(module, n, f)
+    return calls
 
 
 def run(n=12, nz=40, device=None):
@@ -106,10 +164,19 @@ def run(n=12, nz=40, device=None):
     for label, pcfg, init_kw in suites():
         phys = manager.init_physics_state(nc, nz, dtype=dtype, device=device,
                                           **init_kw)
-        out[f"physics_step {label}"] = count_ops(
-            lambda: manager.physics_step(grid, pcfg, grid.mesh, coeffs,
-                                         carry.state, carry.diag, phys,
-                                         cfg.config_dt))
+
+        def step():
+            manager.physics_step(grid, pcfg, grid.mesh, coeffs, carry.state,
+                                 carry.diag, phys, cfg.config_dt)
+        out[f"physics_step {label}"] = count_ops(step)
+        if pcfg.config_radiation_scheme == "cam":
+            cam_calls = recorded_calls(cam_radiation, ("cam_lw", "cam_sw"),
+                                       step)
+    for name, (a, k) in cam_calls.items():
+        out[name] = count_ops(
+            lambda: getattr(cam_radiation, name)(*a, **k))
+        out[f"{name} MB per cell in float32"] = count_bytes(
+            lambda: getattr(cam_radiation, name)(*a, **k)) / nc / 1e6
     return out
 
 
@@ -121,8 +188,9 @@ def main():
     args = parser.parse_args()
     device = resolve_device(args.device)
     for label, k in run(args.n, args.nz, device).items():
-        print(f"{label}: {k} aten calls ({args.n}x{args.n} cells, "
-              f"{args.nz} levels, {device})")
+        what = f"{k:.4f}" if "MB" in label else f"{k} aten calls"
+        print(f"{label}: {what} ({args.n}x{args.n} cells, {args.nz} "
+              f"levels, {device})")
 
 
 if __name__ == "__main__":

@@ -394,6 +394,64 @@ def test_convperm_and_kf_steps_on_the_card_match_the_cpu(cuda_device,
 
 
 @pytest.mark.cuda
+def test_cam_step_on_the_card_matches_the_cpu(cuda_device):
+    """One coupled step of the 144-cell, 16-level supercell with WSM6, the
+    mesoscale_reference suite under CAM radiation and the supercell
+    namelist's dissipation (2d_fixed, vertical eddy viscosities) on the
+    card: 12 K1 + 30 K2 launches, none from the physics; the state and the
+    physics state agree with the CPU's plain path at 1e-11 x max|CPU|."""
+    import dataclasses
+
+    from mpas_tpu_torch.cores.atmosphere.config import AtmConfig
+    from mpas_tpu_torch.cores.atmosphere.hooks import run_steps_with_physics
+    from mpas_tpu_torch.cores.atmosphere.init_supercell import init_supercell
+    from mpas_tpu_torch.cores.atmosphere.moisture import seeded_moisture
+    from mpas_tpu_torch.cores.atmosphere.physics.manager import (
+        SCHEME_FIELDS, PhysicsConfig, init_physics_state, resolve_suite)
+    from mpas_tpu_torch.cores.atmosphere.time_integration import init_carry
+    from mpas_tpu_torch.mesh.planar import planar_hex_mesh
+    from mpas_tpu_torch.ops.reconstruct import build_reconstruct_coeffs
+
+    cfg = AtmConfig(config_dt=12.0, config_nvertlevels=16,
+                    config_len_disp=2000.0, config_xnutr=0.0,
+                    config_microp_scheme="mp_wsm6", config_monotonic=True,
+                    config_horiz_mixing="2d_fixed",
+                    config_h_mom_eddy_visc2=500.0,
+                    config_h_theta_eddy_visc2=500.0,
+                    config_v_mom_eddy_visc2=500.0,
+                    config_v_theta_eddy_visc2=500.0,
+                    config_h_mom_eddy_visc4=0.0,
+                    config_h_theta_eddy_visc4=0.0)
+    grid, state, diag = init_supercell(planar_hex_mesh(12, 12, 2000.0), cfg,
+                                       case=5)
+    sc = seeded_moisture(grid.mesh, state.scalars, 7)
+    state = dataclasses.replace(state, scalars=torch.cat(
+        [sc, torch.zeros_like(sc)], -1))
+    pcfg = dataclasses.replace(
+        resolve_suite(PhysicsConfig(**{k: "suite" for k in SCHEME_FIELDS})),
+        config_radiation_scheme="cam")
+    coeffs = torch.from_numpy(build_reconstruct_coeffs(grid.mesh))
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        g = grid.to(dev, torch.float64)
+        carry = init_carry(g, cfg, state.to(dev, torch.float64),
+                           diag.to(dev, torch.float64), 12.0)
+        phys = init_physics_state(144, 16, lsm_scheme="noah", device=dev)
+        kernels.reset_launch_counts()      # after init_carry's one K2
+        out[dev.type] = run_steps_with_physics(g, cfg, carry, phys,
+                                               coeffs.to(dev), 12.0, 1,
+                                               pcfg=pcfg, gmt_hours=7.0)
+    assert kernels.launch_counts == {"acoustic_cell_update": 12,
+                                     "tinydot": 30}
+    (c_cpu, p_cpu), (c_gpu, p_gpu) = out["cpu"], out["cuda"]
+    for k in ("u", "w", "theta_m", "rho_zz", "scalars"):
+        assert_close([getattr(c_gpu.state, k).cpu()],
+                     [getattr(c_cpu.state, k)], 1e-11)
+    for k in ("tsk", "glw", "gsw", "rad_tend", "hpbl", "tslb", "smois"):
+        assert_close([getattr(p_gpu, k).cpu()], [getattr(p_cpu, k)], 1e-11)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("core,argv", [
     ("sw", ["--dt", "600", "--duration", "1:00:00"]),
     ("atmosphere", ["--duration", "1:00:00"])])

@@ -136,6 +136,11 @@ import mpas_tpu_torch.cores.atmosphere.physics.mynn
 import mpas_tpu_torch.cores.atmosphere.physics.gf
 import mpas_tpu_torch.cores.atmosphere.physics.kfeta
 import mpas_tpu_torch.cores.atmosphere.physics.convection
+import mpas_tpu_torch.cores.atmosphere.physics.cam_radiation
+import mpas_tpu_torch.cores.atmosphere.physics.o3
+import mpas_tpu_torch.cores.atmosphere.physics.oml
+import mpas_tpu_torch.cores.atmosphere.physics.urban
+import mpas_tpu_torch.cores.atmosphere.diagnostics.manager
 import mpas_tpu_torch.ops.reconstruct
 import mpas_tpu_torch.tools.mesoref_noon
 import mpas_tpu_torch.tools.op_count

@@ -16,17 +16,20 @@ import pytest
 import torch
 
 from mpas_tpu.cores.atmosphere import nhyd as jnhyd
+from mpas_tpu.cores.atmosphere import time_integration as jti
 from mpas_tpu.cores.atmosphere import transport as jtransport
 from mpas_tpu.cores.atmosphere.config import AtmConfig
 from mpas_tpu.cores.atmosphere.init_jw import init_jw
 from mpas_tpu_torch import convert
 from mpas_tpu_torch.cores.atmosphere import nhyd as tnhyd
+from mpas_tpu_torch.cores.atmosphere import time_integration as tti
 from mpas_tpu_torch.cores.atmosphere import transport as ttransport
 from mpas_tpu_torch.cores.atmosphere.config import AtmConfig as TAtmConfig
 
 torch.set_num_threads(1)
 
 REL = 1e-11
+REL_STEPS = 1e-9
 CFG = dict(config_nvertlevels=10, config_len_disp=960000.0,
            config_dt=1200.0)
 DT = 1200.0
@@ -55,14 +58,14 @@ def J(x):
     return jnp.asarray(x)
 
 
-def assert_close(got, ref, names=None):
+def assert_close(got, ref, names=None, rel=REL):
     for i, (g, r) in enumerate(zip(got, ref)):
         g = g.numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
         r = np.asarray(r)
         name = names[i] if names else i
         assert g.shape == r.shape, name
         scale = max(float(np.abs(r).max()), 1e-300)
-        assert np.abs(g - r).max() <= REL * scale, name
+        assert np.abs(g - r).max() <= rel * scale, name
 
 
 class Case:
@@ -143,6 +146,96 @@ def test_compute_dyn_tend(case, rk):
     assert_close(got[:5], ref[:5],
                  ["tend_u", "tend_rho", "tend_theta", "tend_w", "h_div"])
     assert_close(got[5], ref[5], ref[5]._fields)
+
+
+# The dissipation options off by default: the vertical eddy viscosities
+# of u, w and theta, Rayleigh damping of u over the top levels, and the
+# fixed horizontal viscosities of 2d_fixed (del2 and del4).
+OPTIONS = {
+    "v_mom_eddy_visc2": dict(config_v_mom_eddy_visc2=500.0),
+    "v_theta_eddy_visc2": dict(config_v_theta_eddy_visc2=500.0),
+    "rayleigh_damp_u": dict(config_rayleigh_damp_u=True,
+                            config_rayleigh_damp_u_timescale_days=0.05),
+    "2d_fixed": dict(config_horiz_mixing="2d_fixed",
+                     config_h_mom_eddy_visc2=2.0e5,
+                     config_h_theta_eddy_visc2=1.0e5,
+                     config_h_mom_eddy_visc4=1.0e15,
+                     config_h_theta_eddy_visc4=5.0e14),
+}
+ALL_OPTIONS = {k: v for o in OPTIONS.values() for k, v in o.items()}
+
+
+@pytest.mark.parametrize("rk", [1, 2])
+@pytest.mark.parametrize("option", [*OPTIONS, "all"])
+def test_compute_dyn_tend_options(case, option, rk):
+    """Each option alone and all together, at the first RK stage (where
+    the mixing is computed) and the second (which reuses it; Rayleigh
+    damping applies at every stage)."""
+    kw = dict(CFG, **(ALL_OPTIONS if option == "all" else OPTIONS[option]))
+    jcfg, tcfg = AtmConfig(**kw), TAtmConfig(**kw)
+    jsd, tsd = _diag_pair(case)
+    jur, jvr = jnhyd.reconstruct_cell_winds(case.jgrid, case.j("u"))
+
+    def run(pkg, rk, euler):
+        mod, grid, cfg, x, sd, conv = (
+            (jnhyd, case.jgrid, jcfg, case.j, jsd, J) if pkg == "jax"
+            else (tnhyd, case.tgrid, tcfg, case.t, tsd, T))
+        return mod.compute_dyn_tend(
+            grid, cfg, rk, DT, x("u"), x("w"), x("theta_m"), x("rho_zz"), sd,
+            x("ru"), x("rw"), x("ru_save"), x("rw_save"), x("theta_save"),
+            x("rho_p"), x("pressure_p"), conv(jur), conv(jvr), euler)
+
+    jeuler = None if rk == 1 else run("jax", 1, None)[5]
+    teuler = None if rk == 1 else tnhyd.EulerTends(*[T(e) for e in jeuler])
+    ref = run("jax", rk, jeuler)
+    got = run("torch", rk, teuler)
+    base = jnhyd.compute_dyn_tend(
+        case.jgrid, case.jcfg, rk, DT, *[case.j(k) for k in (
+            "u", "w", "theta_m", "rho_zz")], jsd,
+        *[case.j(k) for k in ("ru", "rw", "ru_save", "rw_save", "theta_save",
+                              "rho_p", "pressure_p")], jur, jvr, jeuler)
+    # the option changes the tendencies it acts on; at the second stage,
+    # given the first stage's mixing, only Rayleigh damping acts
+    moved = {"v_mom_eddy_visc2": (0, 3), "v_theta_eddy_visc2": (2,),
+             "rayleigh_damp_u": (0,), "2d_fixed": (0, 2, 3),
+             "all": (0, 2, 3)}[option]
+    if rk > 1:
+        moved = (0,) if option in ("rayleigh_damp_u", "all") else ()
+    for i in range(4):
+        same = np.array_equal(np.asarray(ref[i]), np.asarray(base[i]))
+        assert same == (i not in moved), i
+    assert_close(got[:5], ref[:5],
+                 ["tend_u", "tend_rho", "tend_theta", "tend_w", "h_div"])
+    assert_close(got[5], ref[5], ref[5]._fields)
+
+
+N_STEPS = 3
+STEP_FIELDS = ["u", "w", "theta_m", "rho_zz", "scalars"]
+
+
+@pytest.fixture(scope="module")
+def option_steps(sphere_mesh_small):
+    """3 srk3 steps of the JW wave with every option on, both packages."""
+    kw = dict(CFG, **ALL_OPTIONS)
+    jcfg = AtmConfig(**kw)
+    jgrid, jstate, jdiag = init_jw(sphere_mesh_small, jcfg, case=2)
+    gj = jax.tree.map(jnp.asarray, jgrid)
+    carry0 = jti.init_carry(gj, jcfg, jax.tree.map(jnp.asarray, jstate),
+                            jax.tree.map(jnp.asarray, jdiag), DT)
+    ref = flatten(jti.run_steps(gj, jcfg, carry0, DT, N_STEPS))
+    grid = convert.grid_from_arrays(flatten(jgrid))
+    carry = convert.carry_from_arrays(flatten(carry0))
+    tcfg = TAtmConfig(**kw)
+    for _ in range(N_STEPS):
+        carry = tti.srk3_step(grid, tcfg, carry, DT)
+    return carry, ref
+
+
+@pytest.mark.parametrize("field", STEP_FIELDS)
+def test_srk3_steps_with_options(option_steps, field):
+    carry, ref = option_steps
+    assert_close([getattr(carry.state, field)], [ref["state"][field]],
+                 [field], rel=REL_STEPS)
 
 
 def test_vert_imp_coefs(case):

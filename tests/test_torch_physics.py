@@ -50,6 +50,7 @@ from mpas_tpu_torch import convert
 from mpas_tpu_torch.constants import cp, rvord
 from mpas_tpu_torch.cores.atmosphere.config import AtmConfig
 from mpas_tpu_torch.cores.atmosphere.moisture import seeded_moisture
+from mpas_tpu_torch.cores.atmosphere.physics import cam_radiation as tcam
 from mpas_tpu_torch.cores.atmosphere.physics import cldfra3 as tcld
 from mpas_tpu_torch.cores.atmosphere.physics import convection as tconv
 from mpas_tpu_torch.cores.atmosphere.physics import driver as tdriver
@@ -754,12 +755,15 @@ def _reference_on(jfn, args, kwargs):
     ("config_sfclay_scheme", "mynn", "mynn_sfc.py")])
 def test_physics_step_refuses_unported_schemes(supercell, field, value,
                                                module):
-    """The mesoscale_reference suite with one scheme swapped. CAM
-    radiation is not ported and raises, naming its module. The other
-    schemes (Kain-Fritsch, Grell-Freitas, the MYNN PBL and surface layer)
-    run: radiation, which comes before each, is the suite's bit for bit,
-    and the swapped scheme's call inside physics_step matches its JAX
-    twin on the same inputs. Kain-Fritsch's twin (a ~25-s compile) is
+    """The mesoscale_reference suite with one scheme swapped; every scheme
+    is ported and runs. CAM radiation gets the inputs RRTMG gets in the
+    suite, and its tendencies and surface fluxes are what physics_step
+    keeps (CAM against its JAX twin, alone and within the reference's
+    physics_step: tests/test_torch_cam.py, test_torch_cam_slice.py). For
+    the other schemes (Kain-Fritsch, Grell-Freitas, the MYNN PBL and
+    surface layer) radiation, which comes before each, is the suite's bit
+    for bit, and the swapped scheme's call inside physics_step matches its
+    JAX twin on the same inputs. Kain-Fritsch's twin (a ~25-s compile) is
     held in tests/test_torch_kf.py and test_torch_kf_slice.py; here its
     inputs and its coupling back are checked. Each scheme within the
     reference's physics_step: tests/test_torch_convperm.py and
@@ -783,8 +787,30 @@ def test_physics_step_refuses_unported_schemes(supercell, field, value,
             x["tgrid"].mesh, coeffs, state, convert.diag_from_arrays(x["d"]),
             tph, 12.0)
     if value == "cam":
-        with pytest.raises(NotImplementedError, match=module):
-            step(**{field: value})
+        calls = {}
+
+        def record(mod, name):
+            fn = getattr(mod, name)
+
+            def recorded(*a, **k):
+                calls[name] = (a, k, fn(*a, **k))
+                return calls[name][2]
+            return mock.patch.object(mod, name, recorded)
+        with record(tcam, "cam_lw"), record(tcam, "cam_sw"):
+            got = step(**{field: value})
+        with record(trrtmg, "rrtmg_lw"), record(trrtmg, "rrtmg_sw"):
+            step()
+        for cam, rrtmg in (("cam_lw", "rrtmg_lw"), ("cam_sw", "rrtmg_sw")):
+            a, b = calls[cam][0], calls[rrtmg][0]
+            assert len(a) == len(b)
+            for x_, y_ in zip(a, b):
+                assert x_ == y_ if isinstance(y_, float) \
+                    else torch.equal(x_, y_)
+        (lw, glw, _), (sw, gsw) = calls["cam_lw"][2], calls["cam_sw"][2]
+        assert torch.equal(calls["cam_sw"][1]["t"], calls["cam_lw"][0][0])
+        assert torch.equal(got[3].rad_tend, lw + sw)
+        assert torch.equal(got[3].glw, glw) and torch.equal(got[3].gsw, gsw)
+        assert float(glw.min()) > 0.0
         return
     mod, name, jmod = SWAPPED[module]
     fn = getattr(mod, name)
@@ -830,11 +856,16 @@ def test_physics_step_refuses_unported_schemes(supercell, field, value,
 
 
 def test_rrtmg_refuses_an_ozone_profile(cols):
+    """An ozone profile (o3_vmr) replaces the fixed column proxy with its
+    path (physics/o3.py), as in the reference; with the o3 climatology:
+    tests/test_torch_cam.py."""
     c = cols
-    with pytest.raises(NotImplementedError, match="o3"):
-        trrtmg.rrtmg_lw(*[T(c[k]) for k in ("t", "qv", "qc", "rho", "dz",
-                                            "tsk")],
-                        o3_vmr=T(np.full((NC, NZ), 1e-7)))
+    args = [c[k] for k in ("t", "qv", "qc", "rho", "dz", "tsk")] + [
+        np.full((NC, NZ), 1e-7)]
+    ref = jax.jit(lambda *a: jrrtmg.rrtmg_lw(*a[:6], o3_vmr=a[6]))(
+        *[J(a) for a in args])
+    got = trrtmg.rrtmg_lw(*[T(a) for a in args[:6]], o3_vmr=T(args[6]))
+    assert_close(got, ref, ["dtdt", "glw", "olr"])
 
 
 @pytest.mark.parametrize("scheme,nsc,error", [
