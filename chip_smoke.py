@@ -4,6 +4,7 @@
     python3 chip_smoke.py
 
     python3 chip_smoke.py --profile DIR   # also torch.profiler breakdowns
+    python3 chip_smoke.py --seed N        # real_120km's first guess (0)
 
 Run from the repository root on a machine with a CUDA card, nvcc and
 PyTorch built for CUDA. Phases, each of which asserts (each prints its
@@ -14,9 +15,10 @@ seconds):
 3. each kernel against its plain PyTorch version at the shapes of every
    path, in float64 and float32: K1 at jw_120km (40,962 cells x 26
    levels), supercell_2km (9,216 x 40), jw_var60_15 (23,000 x 26) and
-   jw_120km_nz55 (40,962 x 55); K2 at the TRiSK and second-derivative
-   contractions of the three atmosphere paths (maxEdges 6, and 8 on the
-   variable-resolution mesh), at the shallow-water TRiSK pair (K = 1
+   real_120km (40,962 x 55); K2 at the TRiSK and second-derivative
+   contractions of the four atmosphere paths (maxEdges 6, and 8 on the
+   variable-resolution mesh; K = 55 and 110 on real_120km), at the
+   shallow-water TRiSK pair (K = 1
    and 2) and at the ocean channel's three (6,336 cells: the barotropic
    Coriolis reconstruction at K = 1, the baroclinic one at K = 20, the
    q-term at K = 40). Each kernel is timed on the device with the host
@@ -48,9 +50,14 @@ seconds):
    with Rayleigh damping of u and both vertical eddy viscosities (3
    steps), rrtmg_lw/rrtmg_sw with an o3_climatology profile and the urban
    canopy (10 slucm_step calls, bep_column_drag, bep_heat_sources) and
-   oml_step on 9,216 columns, all held at 1e-11 x max; and the ocean's
+   oml_step on 9,216 columns, all held at 1e-11 x max; the ocean's
    baroclinic channel (192 cells, 10 levels: 3 split-explicit steps of
-   300 s and 4 RK4 steps of 30 s);
+   300 s and 4 RK4 steps of 30 s); the real-data init from a seeded
+   5-degree first guess on the 642-cell sphere (10 levels, 3 steps, qv
+   >= 0); and the regional zones (relaxation nudging, specified-zone
+   reset on cells, edges and a 3-D field, the LBC time interpolation) and
+   the IAU tendencies inside and after their window on the 8,836-cell
+   box_hex_mesh(96, 96, 3 km) at 55 levels, all held at 1e-11 x max;
    4b. small float64 sharded runs on the card, all shards in one process
    (loopback), held to the same runs unsharded on the card at 1e-11 x
    max: JW (642 cells, 10 levels, 3 steps) on 2 and 4 shards, the ocean
@@ -65,6 +72,15 @@ seconds):
      levels (12 K1 and 15 K2 launches per step);
    - sw_tc5_120km: shallow-water test case 5 on the same mesh, dt = 45 s,
      RK4 (8 K2 launches per step, no K1);
+   - real_120km: the real-data atmosphere (init case 7) on the same mesh,
+     written as a netCDF4 grid file and read back (every array bit for
+     bit with the generated mesh), from a seeded GFS-like first guess on
+     the 0.5-degree 720 x 361 grid at 26 levels written as a WPS
+     intermediate file and read back; init_real to 55 levels under 30
+     km, dt = 720 s, one scalar (qv), no microphysics (12 K1 and 15 K2
+     launches per step); dry mass and total qv conserved to 1e-5, qv >= 0
+     to float32 rounding, max |u| < 150 m/s; the host seconds of the
+     grid file, the met file and init_real (vertical_interp's share);
    - supercell_2km: the supercell on the 9,216-cell doubly periodic 2-km
      hex mesh with 40 levels, Kessler microphysics and three transported
      scalars, from an initial state seeded with cloud and rain (so the
@@ -132,15 +148,19 @@ seconds):
    - sw_tc5_120km: `sw --mesh icos:64 --dt 45`, 4 steps (8 K2 a step);
    - ocean_channel_10km: `ocean --mesh channel:32,200,10000`, 4 steps of
      300 s (245 K2 a step); each final output held to a direct run_steps
-     at the same bound.
+     at the same bound;
+   - jw_120km from real_120km's netCDF4 grid file: `atmosphere --mesh
+     file:<x1.40962.grid.nc> --duration 0:24:00` (2 steps), its final
+     output held to the same 2 steps with `--mesh icos:64` at the same
+     bound (bit for bit or not is printed).
 
 The second-to-last line is a JSON object with each kernel's numbers at
-its jw_120km float32 shape (launches summed over the eleven paths and
-the command line's four runs), the last one {"ok": true, "device":
+its jw_120km float32 shape (launches summed over the twelve paths and
+the command line's six runs), the last one {"ok": true, "device":
 {...}}. Without CUDA it fails before any result is printed.
 
 --profile DIR adds torch.profiler breakdowns of 3 steps of each of the
-eleven paths.
+twelve paths.
 """
 
 from __future__ import annotations
@@ -166,6 +186,7 @@ SLICE_RTOL = 1e-9                  # tests/test_torch_supercell.py
 K1_PER_STEP = 12   # 3 dynamics substeps x (1 + 1 + 2) acoustic iterations
 # K2: 3 solve_diagnostics + 9 dyn_tend q + 3 transport stages per scalar
 K2_PER_STEP = {"jw_120km": 3 + 9 + 3 * 1, "supercell_2km": 3 + 9 + 3 * 3,
+               "real_120km": 3 + 9 + 3 * 1,
                "jw_var60_15": 3 + 9 + 3 * 1,
                "supercell_2km_mesoref": 3 + 9 + 3 * 6,
                "supercell_2km_convperm": 3 + 9 + 3 * 8,
@@ -192,10 +213,11 @@ OCEAN_CELLS = 6336                 # channel_hex_mesh(32, 200, 10 km)
 OCEAN_NZ = 20
 # (path, nC, nz) of K1, and (path, nC, (P, I, K) ...) of K2
 K1_SHAPES = (("jw_120km", 40962, 26), ("supercell_2km", 9216, 40),
-             ("jw_var60_15", 23000, 26), ("jw_120km_nz55", 40962, 55))
+             ("jw_var60_15", 23000, 26), ("real_120km", 40962, 55))
 K2_SHAPES = (("jw_120km", 40962, ((6, 6, 26), (6, 6, 52), (3, 6, 26))),
              ("supercell_2km", 9216, ((6, 6, 40), (6, 6, 80), (3, 6, 40))),
              ("jw_var60_15", 23000, ((8, 8, 26), (8, 8, 52), (3, 8, 26))),
+             ("real_120km", 40962, ((6, 6, 55), (6, 6, 110), (3, 6, 55))),
              ("sw_tc5_120km", 40962, ((6, 6, 1), (6, 6, 2))),
              ("ocean_channel_10km", OCEAN_CELLS, ((6, 6, 1), (6, 6, 20),
                                                   (6, 6, 40))))
@@ -1416,6 +1438,309 @@ def run_var_path(device, card):
     return cfg, grid, carry, counts
 
 
+# the real-data paths: a seeded first guess on a global lat-lon grid
+GFS_LEVELS_HPA = (1000, 975, 950, 925, 900, 850, 800, 750, 700, 650, 600,
+                  550, 500, 450, 400, 350, 300, 250, 200, 150, 100, 70, 50,
+                  30, 20, 10)          # GFS's 26 isobaric levels
+REAL_NZ, REAL_ZT = 55, 30000.0       # namelist.init_atmosphere defaults
+# qv >= 0 holds exactly in float64 (phase 4, tests/test_torch_real_slice.py);
+# in float32 the flux-form update of levels where qv is 0 leaves rounding
+# of a few 1e-16 below it: the f32 path is held to -eps32 x max qv
+QV_F32_FLOOR = float(np.finfo(np.float32).eps)
+
+
+def _smooth(rng, lat, lon, modes=6):
+    """A seeded smooth field on the lat-lon grid, |.| <= 1, zero at the
+    poles: a few low-wavenumber waves."""
+    out = np.zeros_like(lat)
+    for _ in range(modes):
+        m, k = rng.integers(1, 6), rng.integers(1, 5)
+        p1, p2 = rng.uniform(0.0, 2.0 * np.pi, 2)
+        out += np.cos(m * lon + p1) * np.cos(k * lat + p2)
+    return np.cos(lat) * out / max(float(np.abs(out).max()), 1e-30)
+
+
+def write_first_guess(path, seed, dlat):
+    """A GFS-like first guess on a global (360/dlat) x (180/dlat + 1)
+    lat-lon grid, written with the port's write_met_file: the analytic
+    profiles of tests/test_init_real.py (_synthetic_gfs) on GFS's 26
+    levels, with seeded smooth perturbations (about 1 K, 1 m/s and 5%
+    RH); PSFC, SKINTEMP and SOILHGT (200 m cos(lat) plus seeded Gaussian
+    hills up to 1,500 m, e-folding 1,000 km, PSFC reduced over them with
+    the profile's scale height); and the soil, SST, SEAICE and SNOW group
+    of _synthetic_gfs_full. Returns the fields as written."""
+    from mpas_tpu_torch.cores.init_atmosphere import met_reader as mr
+    rng = np.random.default_rng(seed)
+    ny, nx = int(round(180.0 / dlat)) + 1, int(round(360.0 / dlat))
+    lats = -90.0 + dlat * np.arange(ny)
+    lons = dlat * np.arange(nx)
+    LA, LO = np.meshgrid(lats, lons, indexing="ij")
+    la, lo = np.radians(LA), np.radians(LO)
+    coslat = np.cos(la)
+    meta = dict(hdate="2020-01-01_00:00:00", xfcst=0.0, nx=nx, ny=ny,
+                iproj=0, startlat=float(lats[0]), startlon=float(lons[0]),
+                deltalat=dlat, deltalon=dlat, earth_radius=6371.229,
+                is_wind_grid_rel=False)
+    fields = []
+
+    def add(name, units, xlvl, slab):
+        fields.append(mr.MetField(field=name, units=units, desc=name,
+                                  xlvl=float(xlvl), slab=slab, **meta))
+
+    pert = {k: (_smooth(rng, la, lo), _smooth(rng, la, lo))
+            for k in ("TT", "UU", "VV", "RH")}
+    amp = {"TT": 1.0, "UU": 1.0, "VV": 1.0, "RH": 5.0}
+    scale_h = 287.0 * 250.0 / 9.81 * (1.0 + 0.01 * coslat)
+    for hpa in GFS_LEVELS_HPA:
+        p = 100.0 * hpa
+        s = np.log(101325.0 / p) / np.log(101325.0 / 1e3)   # 0 .. 1
+
+        def pt(k):
+            return amp[k] * ((1.0 - s) * pert[k][0] + s * pert[k][1])
+        t = 288.0 - 55.0 * np.log(101325.0 / p) / np.log(101325.0 / 1e4) \
+            + 10.0 * coslat + pt("TT")
+        z = scale_h * np.log(101325.0 / p)
+        u = 20.0 * np.sin(2.0 * la) ** 2 * (p / 1e5) + pt("UU")
+        v = pt("VV")
+        rh = np.clip(50.0 * (p / 1e5) + pt("RH"), 0.0, 100.0)
+        for name, slab, units in (("TT", t, "K"), ("GHT", z, "m"),
+                                  ("UU", u, "m s-1"), ("VV", v, "m s-1"),
+                                  ("RH", rh, "%")):
+            add(name, units, p, slab)
+    hills = np.zeros_like(LA)
+    for _ in range(6):
+        clat = np.radians(rng.uniform(-60.0, 60.0))
+        clon = np.radians(rng.uniform(0.0, 360.0))
+        d = 6371.229e3 * np.arccos(np.clip(
+            np.sin(la) * np.sin(clat)
+            + coslat * np.cos(clat) * np.cos(lo - clon), -1.0, 1.0))
+        hills += rng.uniform(500.0, 1500.0) * np.exp(-(d / 1.0e6) ** 2)
+    ter = 200.0 * np.maximum(coslat, 0.0) + hills
+    sfc = {
+        "PSFC": (101325.0 - 500.0 * coslat) * np.exp(-ter / scale_h),
+        "SKINTEMP": 288.0 + 12.0 * coslat,
+        "SOILHGT": ter,
+        "ST000010": 285.0 + 10.0 * coslat,
+        "ST010040": 284.0 + 9.0 * coslat,
+        "ST040100": 283.0 + 8.0 * coslat,
+        "ST100200": 282.0 + 7.0 * coslat,
+        "SM000010": 0.25 + 0.1 * np.sin(lo),
+        "SM010040": 0.27 + 0.1 * np.sin(lo),
+        "SM040100": 0.30 + 0.05 * np.sin(lo),
+        "SM100200": 0.32 + 0.02 * np.sin(lo),
+        "SST": 271.0 + 29.0 * coslat ** 2,
+        "SEAICE": np.where(np.abs(LA) > 70.0, 0.9, 0.0),
+        "SNOW": np.where(np.abs(LA) > 60.0, 5.0, 0.0),
+    }
+    for name, slab in sfc.items():
+        add(name, "-", 200100.0, np.asarray(slab, dtype=np.float64))
+    mr.write_met_file(path, fields)
+    return fields
+
+
+def real_config(nz, dt, len_disp):
+    from mpas_tpu_torch.cores.atmosphere.config import AtmConfig
+    return AtmConfig(config_nvertlevels=nz, config_dt=dt,
+                     config_len_disp=len_disp)
+
+
+def check_small_real(device, mesh8):
+    """Phase 4: the real-data init (a seeded 5-degree first guess) on the
+    642-cell sphere, 10 levels, and 3 f64 steps on the card vs the CPU at
+    1e-11 x max."""
+    from mpas_tpu_torch.cores.init_atmosphere import met_reader as mr
+    from mpas_tpu_torch.cores.init_atmosphere.real_case import init_real
+    cfg = real_config(10, 1200.0, 960000.0)
+    with tempfile.TemporaryDirectory(prefix="real_small") as tmp:
+        path = os.path.join(tmp, "FILE:2020-01-01_00")
+        write_first_guess(path, 0, 5.0)
+        grid, state, diag, _ = init_real(mesh8, cfg, mr.read_met_file(path))
+    outs = atm_runs("real-data", device, cfg, grid, state, diag, 3)
+    compare_scaled("real-data", {w: state_fields(c) for w, c in outs.items()},
+                   rel=PHYS_RTOL)
+    for where, c in outs.items():
+        require(float(c.state.scalars[..., 0].min()) >= 0.0,
+                f"real-data f64 on {where}: negative qv")
+
+
+REGIONAL_MESH = (96, 96, 3000.0)     # box_hex_mesh: 8,836 cells
+
+
+def check_regional_iau(device):
+    """Phase 4: the regional zones and IAU at full size, f64, card vs
+    CPU at 1e-11 x max: build_bdy_masks on box_hex_mesh(96, 96, 3 km),
+    relaxzone_tend and speczone_reset on cells, edges and a 3-D scalar
+    field at 55 levels, lbc_interp of an LbcRecord inside and at both
+    ends of its interval, and iau_tendencies inside and after the
+    window."""
+    from mpas_tpu_torch.cores.atmosphere import boundaries as bdy
+    from mpas_tpu_torch.cores.atmosphere import iau
+    from mpas_tpu_torch.cores.init_atmosphere.surface_lbc import LbcRecord
+    from mpas_tpu_torch.mesh.planar import box_hex_mesh
+    t0 = time.perf_counter()
+    mesh = box_hex_mesh(*REGIONAL_MESH)
+    masks = bdy.build_bdy_masks(mesh)
+    print(f"regional box mesh {mesh.nCells} cells, {mesh.nEdges} edges and "
+          f"its zones in {time.perf_counter() - t0:.2f} s; cells per zone "
+          f"{np.bincount(masks.bdyMaskCell.numpy()).tolist()}")
+    rng = np.random.default_rng(0)
+    nc, ne, nz = mesh.nCells, mesh.nEdges, REAL_NZ
+
+    def arr(*shape):
+        return torch.from_numpy(rng.standard_normal(shape))
+
+    def rec(time_s):
+        return LbcRecord(time=time_s, lbc_u=arr(ne, nz),
+                         lbc_theta=300.0 + arr(nc, nz),
+                         lbc_rho=1.0 + 0.01 * arr(nc, nz),
+                         lbc_w=arr(nc, nz + 1), lbc_scalars=arr(nc, nz, 2))
+    lbc = (rec("t1"), rec("t2"))
+    field = {"cell": arr(nc, nz), "edge": arr(ne, nz),
+             "scalars": arr(nc, nz, 2)}
+    inc = iau.IAUIncrements(theta_incr=arr(nc, nz),
+                            rho_incr=1e-3 * arr(nc, nz),
+                            u_incr=arr(ne, nz), qv_incr=1e-4 * arr(nc, nz))
+    rho = 1.0 + 0.1 * arr(nc, nz).abs()
+    cfg = iau.IAUConfig("on", 21600.0)
+
+    def ops(dev):
+        m = masks.to(dev, torch.float64)
+        f = {k: v.to(dev) for k, v in field.items()}
+        drive = {"cell": lbc[0].lbc_theta.to(dev),
+                 "edge": lbc[0].lbc_u.to(dev),
+                 "scalars": lbc[0].lbc_scalars.to(dev)}
+        out = {}
+        for k in f:
+            on_edges = k == "edge"
+            out[f"relax_{k}"] = bdy.relaxzone_tend(m, 720.0, f[k], drive[k],
+                                                   on_edges)
+            out[f"spec_{k}"] = bdy.speczone_reset(m, f[k], drive[k],
+                                                  on_edges)
+        moved = [dataclasses.replace(r, **{
+            n: getattr(r, n).to(dev) for n in ("lbc_u", "lbc_theta",
+                                               "lbc_rho", "lbc_w",
+                                               "lbc_scalars")}) for r in lbc]
+        for now in (0.0, 7200.0, 21600.0):
+            mid = bdy.lbc_interp(moved[0], moved[1], 0.0, 21600.0, now)
+            for n in ("lbc_u", "lbc_theta", "lbc_w", "lbc_scalars"):
+                out[f"lbc_interp_{n}_{now:g}"] = getattr(mid, n)
+        i = inc.to(dev, torch.float64)
+        for el in (3600.0, 21600.0):
+            tends = iau.iau_tendencies(cfg, i, rho.to(dev), el)
+            for n, t in zip(("rtheta", "rho", "u", "qv"), tends):
+                out[f"iau_{n}_{el:g}"] = t
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    got, ref = ops(device), ops(torch.device("cpu"))
+    worst = 0.0
+    for k, r in ref.items():
+        scale = float(np.abs(r).max())
+        err = float(np.abs(got[k] - r).max())
+        worst = max(worst, err / scale if scale else err)
+        require(np.isfinite(got[k]).all() and err <= PHYS_RTOL * scale,
+                f"regional {k}: card {err:.3e} from the CPU (max {scale:.3e})")
+        if k.startswith("iau_") and k.endswith("21600"):
+            require(scale == 0.0, f"{k}: IAU active after its window")
+    print(f"regional zones, LBC interpolation and IAU on the card: "
+          f"{len(ref)} outputs, worst err / max|cpu| {worst:.3e} (bound "
+          f"{PHYS_RTOL:g})")
+
+
+def check_grid_file(mesh, read):
+    """The mesh read from its grid file against the mesh it was written
+    from, array by array, bit for bit; edgesOnEdge and weightsOnEdge in
+    the file's packed layout."""
+    from mpas_tpu_torch.mesh.gridfile import packed_edges_on_edge
+    eoe, woe, _ = packed_edges_on_edge(mesh)
+    packed = {"edgesOnEdge": eoe, "weightsOnEdge": woe}
+    n = 0
+    for f in dataclasses.fields(mesh):
+        a, b = getattr(mesh, f.name), getattr(read, f.name)
+        if isinstance(a, torch.Tensor):
+            want = packed.get(f.name, a.numpy())
+            require(b.dtype == a.dtype and np.array_equal(b.numpy(), want),
+                    f"grid file: {f.name} differs from the written mesh")
+            n += 1
+        else:
+            require(a == b, f"grid file: {f.name} {a} != {b}")
+    return n
+
+
+def real_setup(mesh, grid_dir, seed, timings):
+    """real_120km's host setup: the mesh through its netCDF4 grid file,
+    the first guess through its WPS intermediate file, then init_real.
+    Fills `timings` with the host seconds of each part."""
+    from mpas_tpu_torch.cores.init_atmosphere import met_reader as mr
+    from mpas_tpu_torch.cores.init_atmosphere.real_case import init_real
+    from mpas_tpu_torch.mesh.gridfile import mesh_from_netcdf, mesh_to_netcdf
+    grid_path = os.path.join(grid_dir, "x1.40962.grid.nc")
+    t0 = time.perf_counter()
+    mesh_to_netcdf(mesh, grid_path, fmt="netcdf4")
+    t1 = time.perf_counter()
+    read = mesh_from_netcdf(grid_path)
+    t2 = time.perf_counter()
+    n = check_grid_file(mesh, read)
+    with open(grid_path, "rb") as fh:
+        require(fh.read(4) == b"\x89HDF", "the grid file is not netCDF4")
+    met_path = os.path.join(grid_dir, "FILE:2020-01-01_00")
+    t3 = time.perf_counter()
+    written = write_first_guess(met_path, seed, 0.5)
+    t4 = time.perf_counter()
+    fields = mr.read_met_file(met_path)
+    t5 = time.perf_counter()
+    require(len(fields) == len(written) and all(
+        a.field == b.field and a.xlvl == b.xlvl and np.array_equal(
+            a.slab, b.slab.astype(np.float32)) for a, b in
+        zip(fields, written)), "the met file does not read back as written")
+    cfg = real_config(REAL_NZ, 720.0, 120000.0)
+    grid, state, diag, extras = init_real(read, cfg, fields, zt=REAL_ZT,
+                                          timings=timings)
+    t6 = time.perf_counter()
+    timings.update(grid_write_s=t1 - t0, grid_read_s=t2 - t1,
+                   met_write_s=t4 - t3, met_read_s=t5 - t4,
+                   init_real_s=t6 - t5, grid_path=grid_path)
+    print(f"real_120km grid file {os.path.getsize(grid_path) / 1e6:.1f} MB "
+          f"(netCDF4), {n} arrays bit for bit with the generated mesh; "
+          f"first guess {len(fields)} fields of {fields[0].nx} x "
+          f"{fields[0].ny} ({os.path.getsize(met_path) / 1e6:.1f} MB); "
+          f"terrain {float(extras['ter'].min()):.0f}-"
+          f"{float(extras['ter'].max()):.0f} m")
+    os.remove(met_path)
+    return cfg, grid, state, diag
+
+
+def run_real_path(device, card, mesh, grid_dir, seed):
+    """Phase 5, real_120km: the real-data atmosphere on the 40,962-cell
+    mesh read back from its netCDF4 grid file, 55 levels to 30 km, dt =
+    720 s, float32: init_real from the seeded 0.5-degree first guess,
+    then run_path (12 K1 and 15 K2 a step); dry mass and total qv
+    conserved to 1e-5, qv >= 0 to float32 rounding (QV_F32_FLOOR), max
+    |u| < 150 m/s."""
+    timings = {}
+    cfg, grid, carry, counts, drift, _, _, ms = run_path(
+        "real_120km", device, card,
+        lambda: real_setup(mesh, grid_dir, seed, timings))
+    require((grid.mesh.nCells, grid.vert.nz) == (40962, REAL_NZ),
+            "real_120km built the wrong size")
+    qv = carry.state.scalars[..., 0]
+    qv_min, qv_max = float(qv.min()), float(qv.max())
+    n_neg = int((qv < 0).sum())
+    u_max = float(carry.state.u.abs().max())
+    print(f"real_120km host seconds on {card}: grid file write "
+          f"{timings['grid_write_s']:.2f}, read {timings['grid_read_s']:.2f}; "
+          f"met file write {timings['met_write_s']:.2f}, read "
+          f"{timings['met_read_s']:.2f}; init_real "
+          f"{timings['init_real_s']:.2f} (vertical_interp "
+          f"{timings['vertical_interp_s']:.2f}); total-qv drift "
+          f"{drift[1]:.3e}; qv {qv_min:.3e} to {qv_max:.3e} ({n_neg} values "
+          f"below 0); max |u| {u_max:.2f} m/s; "
+          f"{ms:.2f} ms/step")
+    require(drift[1] <= 1e-5, f"total qv not conserved: {drift[1]:.3e}")
+    require(qv_min >= -QV_F32_FLOOR * qv_max, f"negative qv {qv_min:.3e}")
+    require(u_max < 150.0, f"max |u| {u_max:.2f} m/s")
+    return cfg, grid, carry, counts, timings["grid_path"]
+
+
 def ocean_setup(nx, ny, nz, dt, integrator="split_explicit"):
     """The baroclinic channel on channel_hex_mesh(nx, ny, 10 km) with nz
     levels (bench.py:132-158 at 32 x 200 and 20 levels)."""
@@ -2231,6 +2556,41 @@ def run_cli_ocean_path(device, card):
                               tinydot_launches_per_split_step(cfg), step)
 
 
+def run_cli_file_path(device, card, grid_path):
+    """jw_120km from a grid file through the command line: `atmosphere
+    --mesh file:<real_120km's netCDF4 grid file>` for 2 steps of 720 s,
+    held to the same 2 steps with `--mesh icos:64` (the mesh the file was
+    written from) at CLI_REL, bit for bit or not printed; 12 K1 and 15 K2
+    launches a step in both (and one K2 in each init_carry)."""
+    from mpas_tpu_torch.io.netcdf import read_netcdf
+    finals, counts = {}, {}
+    for label, spec in (("file", "file:" + grid_path), ("icos", "icos:64")):
+        with tempfile.TemporaryDirectory(prefix=f"jw_{label}_cli") as tmp:
+            d = Path(tmp)
+            counts[label], secs = cli_run(["atmosphere", "--mesh", spec,
+                                           "--duration", "0:24:00",
+                                           "--run-dir", str(d)])
+            log, _, rows = cli_log(d, "atmosphere")
+            require("completed step 2/2" in log,
+                    f"--mesh {spec}: the log has no step 2")
+            outputs = sorted(d.glob("output.atmosphere.*.nc"))
+            require(len(outputs) == 2, f"--mesh {spec}: outputs {outputs}")
+            finals[label] = read_netcdf(str(outputs[-1]))[0]
+            print(f"atmosphere --mesh {spec} on {card}: 2 steps in "
+                  f"{secs:.2f} s with setup and files (initialize, the "
+                  f"mesh and init_jw, {rows['initialize'][1]:.2f} s); time "
+                  f"integration {1e3 * rows['time integration'][1] / 2:.2f} "
+                  f"ms/step; launches {counts[label]}")
+        require(counts[label]["acoustic_cell_update"] == K1_PER_STEP * 2
+                and counts[label]["tinydot"]
+                == K2_PER_STEP["jw_120km"] * 2 + 1,
+                f"--mesh {spec}: launches {counts[label]}")
+    cli_compare("jw_120km from the grid file vs --mesh icos:64, 2 steps",
+                finals["file"], {k: v[0] for k, v in finals["icos"].items()
+                                 if k != "xtime"})
+    return counts
+
+
 def timed(label, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -2243,13 +2603,15 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
                         help="also profile 3 steps of jw_120km, "
-                             "sw_tc5_120km, supercell_2km, "
+                             "sw_tc5_120km, real_120km, supercell_2km, "
                              "supercell_2km_mesoref, supercell_2km_convperm, "
                              "supercell_2km_kf, supercell_2km_cam, "
                              "jw_var60_15, "
                              "ocean_channel_10km and the two 4-way paths; "
                              "the kernel tables go to "
                              "DIR/profile_<path>.txt")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of real_120km's first guess")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this "
@@ -2291,6 +2653,9 @@ def main():
     timed("f64 urban and slab ocean", check_urban_oml, device)
     timed("small f64 kf_eta deep columns", check_kf_column, device)
     timed("small f64 ocean", check_small_ocean, device)
+    timed("small f64 real-data init + 3 steps", check_small_real, device,
+          mesh8)
+    timed("f64 regional zones, LBC and IAU", check_regional_iau, device)
     timed("small f64 sharded, loopback", check_small_sharded, device, mesh8)
     timed("process group on NCCL", check_nccl_exchange, device, mesh8)
 
@@ -2335,7 +2700,15 @@ def main():
     from mpas_tpu_torch.mesh.cache import save_mesh
     cli_cache = tempfile.TemporaryDirectory(prefix="mesh_cache")
     save_mesh(mesh64, os.path.join(cli_cache.name, "icos64_l4.npz"))
-    del sw, mesh64
+    del sw
+    # real_120km's grid file stays for phase 6's --mesh file: run
+    grid_dir = tempfile.TemporaryDirectory(prefix="real_120km")
+    cfg, grid, carry, counts["real_120km"], grid_path = timed(
+        "real_120km", run_real_path, device, card, mesh64, grid_dir.name,
+        args.seed)
+    if args.profile:
+        profile_srk3("real_120km", cfg, grid, carry, args.profile)
+    del grid, carry, mesh64
     cfg, grid, carry, counts["supercell_2km"] = timed(
         "supercell_2km", run_supercell_path, device, card)
     if args.profile:
@@ -2404,12 +2777,18 @@ def main():
         counts["ocean_channel_10km_cli"] = timed(
             "ocean_channel_10km via the command line", run_cli_ocean_path,
             device, card)
+        file_counts = timed("jw_120km via the command line from the grid "
+                            "file", run_cli_file_path, device, card,
+                            grid_path)
+        counts["jw_120km_file_cli"] = file_counts["file"]
+        counts["jw_120km_icos_cli"] = file_counts["icos"]
     finally:
         if saved_cache is None:
             os.environ.pop("MPAS_TPU_TORCH_CACHE")
         else:
             os.environ["MPAS_TPU_TORCH_CACHE"] = saved_cache
         cli_cache.cleanup()
+        grid_dir.cleanup()
     print(f"jw_120km on {card}: {cli_ms:.2f} ms/step through the command "
           f"line, {jw_ms:.2f} ms/step direct (phase 5)")
 

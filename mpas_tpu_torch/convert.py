@@ -2,13 +2,16 @@
 
 The input is the reference's `AtmGrid`/`AtmState`/`AtmDiag`/`AtmCarry`,
 `PhysicsState`, `UrbanState`, `SWState`,
-`OcnGrid`/`OcnState`/`OcnSurfaceForcing` or `ShardedMesh` flattened to
+`OcnGrid`/`OcnState`/`OcnSurfaceForcing`, `ShardedMesh`, `BdyMasks`,
+`LbcRecord` or `IAUIncrements` flattened to
 nested dicts of numpy arrays plus their static ints and
 floats (nCells, nz, cf1..3, adv_beta, sphere_radius, ...): the same field
 names, no JAX types. The reconstruction coefficients are a plain array
-(torch.from_numpy). Fields the port does not carry (the indexed advection stencil)
-are ignored. Arrays become CPU tensors of the same float dtype; index
-arrays become int64; fields that are None stay None.
+(torch.from_numpy). Fields the port does not carry (the indexed advection
+stencil) are ignored; a real-data grid, which carries only that stencil,
+gets the factored advection tensors built from its mesh. Arrays become
+CPU tensors of the same float dtype; index arrays become int64; fields
+that are None stay None.
 """
 
 from __future__ import annotations
@@ -18,12 +21,18 @@ import dataclasses
 import numpy as np
 import torch
 
-from mpas_tpu_torch.cores.atmosphere.setup import AtmGrid, VerticalGrid
+from mpas_tpu_torch.cores.atmosphere.boundaries import BdyMasks
+from mpas_tpu_torch.cores.atmosphere.iau import IAUIncrements
+from mpas_tpu_torch.cores.atmosphere.setup import (AtmGrid, VerticalGrid,
+                                                   build_adv_cell_tensors,
+                                                   build_adv_factored,
+                                                   build_cell_fit_matrices)
 from mpas_tpu_torch.cores.atmosphere.state import AtmDiag, AtmState
 from mpas_tpu_torch.cores.atmosphere.physics.manager import PhysicsState
 from mpas_tpu_torch.cores.atmosphere.physics.urban import UrbanState
 from mpas_tpu_torch.cores.atmosphere.time_integration import AtmCarry
 from mpas_tpu_torch.cores.ocean.forcing import OcnSurfaceForcing
+from mpas_tpu_torch.cores.init_atmosphere.surface_lbc import LbcRecord
 from mpas_tpu_torch.cores.ocean.state import OcnGrid, OcnState
 from mpas_tpu_torch.cores.sw.state import SWState
 from mpas_tpu_torch.mesh.mesh import Mesh
@@ -53,9 +62,27 @@ def mesh_from_arrays(d) -> Mesh:
     return _build(Mesh, d)
 
 
-def grid_from_arrays(d) -> AtmGrid:
-    return _build(AtmGrid, d, mesh=mesh_from_arrays(d["mesh"]),
-                  vert=_build(VerticalGrid, d["vert"]))
+def grid_from_arrays(d, adv_beta=None) -> AtmGrid:
+    """A reference AtmGrid. Where it lacks the factored advection tensors
+    (the real-data init fills only the indexed stencil), they are built
+    from its mesh as the port's inits build them, and adv_beta must be
+    given: the config's config_coef_3rd_order, which the reference's
+    indexed stencil has baked into adv_coefs_3rd."""
+    mesh = mesh_from_arrays(d["mesh"])
+    nested = {}
+    if d.get("d2_bmat") is None:
+        if adv_beta is None:
+            raise ValueError("the grid has no factored advection tensors: "
+                             "pass adv_beta=config_coef_3rd_order")
+        bmats = build_cell_fit_matrices(mesh)
+        d2_bmat, d2w = build_adv_factored(mesh, bmats)
+        d2w_own, d2w_opp, s_cp, dv_cell = build_adv_cell_tensors(mesh)
+        nested = {k: _tensor(v) for k, v in dict(
+            d2_bmat=d2_bmat, d2w=d2w, d2w_own=d2w_own, d2w_opp=d2w_opp,
+            adv_sside=s_cp, dv_cell=dv_cell).items()}
+        nested["adv_beta"] = float(adv_beta)
+    return _build(AtmGrid, d, mesh=mesh,
+                  vert=_build(VerticalGrid, d["vert"]), **nested)
 
 
 def state_from_arrays(d) -> AtmState:
@@ -122,6 +149,21 @@ def sharded_mesh_from_arrays(d) -> ShardedMesh:
                   cell_nx=nx_table(d["cell_nx"]),
                   edge_nx=nx_table(d["edge_nx"]),
                   vertex_nx=nx_table(d["vertex_nx"]))
+
+
+def bdy_masks_from_arrays(d) -> BdyMasks:
+    return _build(BdyMasks, d)
+
+
+def lbc_record_from_arrays(d) -> LbcRecord:
+    """A reference LbcRecord: its arrays stay numpy, as the port's
+    build_lbc_records gives them."""
+    return LbcRecord(**{f.name: d[f.name]
+                        for f in dataclasses.fields(LbcRecord)})
+
+
+def iau_increments_from_arrays(d) -> IAUIncrements:
+    return _build(IAUIncrements, d)
 
 
 def to_arrays(obj):

@@ -118,7 +118,9 @@ def shard_atm_grid(grid: AtmGrid, part, halo_depth: int = ATM_HALO_DEPTH
         recon_zonal=sc(grid.recon_zonal, "cell"),
         recon_merid=sc(grid.recon_merid, "cell"),
         rho_base=one(grid.rho_base), rtheta_base=one(grid.rtheta_base),
-        exner_base=one(grid.exner_base), d2_bmat=d2_bmat_l, d2w=d2w_l,
+        exner_base=one(grid.exner_base),
+        pressure_base=sc(grid.pressure_base, "cell"),
+        d2_bmat=d2_bmat_l, d2w=d2w_l,
         # edge-valued content on cell rows: row reorder only; dead slots
         # are killed by the masked edgeSignOnCell of the sharded mesh
         d2w_own=opt_cell(grid.d2w_own), d2w_opp=opt_cell(grid.d2w_opp),

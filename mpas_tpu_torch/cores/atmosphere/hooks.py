@@ -17,7 +17,6 @@ import dataclasses
 
 import torch
 
-from mpas_tpu_torch.constants import rgas
 from mpas_tpu_torch.containers import to_host
 from mpas_tpu_torch.cores.atmosphere import time_integration
 from mpas_tpu_torch.cores.atmosphere.config import AtmConfig
@@ -57,8 +56,6 @@ class _AtmRun:
     cfg: AtmConfig
     carry: time_integration.AtmCarry
     recon: object
-    # surface base-state pressure, for the output's surface_pressure
-    pressure_base_sfc: object
     phys: object = None        # PhysicsState when the suite is active
 
 
@@ -76,9 +73,6 @@ def _setup(cfg: AtmConfig, mesh_spec: str, device, dtype):
     else:
         from mpas_tpu_torch.cores.atmosphere.init_jw import init_jw
         grid, state, diag = init_jw(mesh0, cfg, case=cfg.config_init_case)
-    # the reference's pressure_base at the lowest level, in float64 on
-    # the host: zz R exner_b (rho theta)_b
-    p_sfc = rgas * (grid.zz * grid.exner_base * grid.rtheta_base)[:, 0]
     recon = torch.from_numpy(build_reconstruct_coeffs(grid.mesh))
     grid = grid.to(device, dtype)
     carry = time_integration.init_carry(grid, cfg, state.to(device, dtype),
@@ -90,8 +84,7 @@ def _setup(cfg: AtmConfig, mesh_spec: str, device, dtype):
                                           cfg.config_nvertlevels,
                                           dtype=dtype, device=device)
     return _AtmRun(grid=grid, cfg=cfg, carry=carry,
-                   recon=recon.to(device, dtype),
-                   pressure_base_sfc=p_sfc.to(device, dtype), phys=phys)
+                   recon=recon.to(device, dtype), phys=phys)
 
 
 def _step_chunk(run: _AtmRun, n: int):
@@ -131,7 +124,7 @@ def _fields(run: _AtmRun, restart: bool):
         out["uReconstructZonal"] = (cn, to_host(zon))
         out["uReconstructMeridional"] = (cn, to_host(mer))
         out["surface_pressure"] = (("nCells",), to_host(
-            d.pressure_p[:, 0] + run.pressure_base_sfc))
+            d.pressure_p[:, 0] + g.pressure_base[:, 0]))
         out["rainnc"] = (("nCells",), to_host(run.carry.rainnc))
     nz = run.cfg.config_nvertlevels
     dims = {"nCells": g.mesh.nCells, "nEdges": g.mesh.nEdges,

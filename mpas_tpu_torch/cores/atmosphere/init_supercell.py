@@ -223,6 +223,7 @@ def init_supercell(mesh: Mesh, cfg: AtmConfig, case: int = 5):
         defc_a=r(defc_a), defc_b=r(defc_b),
         recon_zonal=r(recon_zonal), recon_merid=r(recon_merid),
         rho_base=r(rb), rtheta_base=r(rtb), exner_base=r(pb),
+        pressure_base=r(p0 * (zz * rgas * rtb / p0) ** (cp / cv)),
         d2_bmat=r(d2_bmat), d2w=r(d2w),
         adv_beta=float(cfg.config_coef_3rd_order),
         d2w_own=r(d2w_own), d2w_opp=r(d2w_opp), adv_sside=r(s_cp),

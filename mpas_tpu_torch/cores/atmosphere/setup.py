@@ -3,10 +3,12 @@ mpas_tpu/cores/atmosphere/setup.py): vertical coordinate, the factored
 advection tensors, deformation and wind-reconstruction weights, omega
 metric terms and the w-damping profile.
 
-Only the grid fields the factored advection path reads are ported; the
+Only the grid fields the factored advection path reads are carried; the
 reference's indexed `advCellsForEdge`/`adv_coefs` stencil is its
-reference algebra and has no consumer here. Everything runs once on the
-host in numpy; the containers hold torch tensors.
+reference algebra and has no consumer in the dycore. `build_adv_coefs`
+builds it all the same, so that a test can hold the factored edge values
+to the indexed contraction. Everything runs once on the host in numpy;
+the containers hold torch tensors.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from mpas_tpu_torch.constants import pii
 from mpas_tpu_torch.containers import to_device
 from mpas_tpu_torch.mesh.build import _wrap_disp
 from mpas_tpu_torch.mesh.mesh import Mesh
+
+N_ADV = 10  # padded advection stencil: 2 cells + 8 distinct neighbours
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +64,7 @@ class AtmGrid:
     rho_base: Any       # (nCells, nz)
     rtheta_base: Any
     exner_base: Any
+    pressure_base: Any  # (nCells, nz) base-state pressure
     # cell-assembled advection factorization (build_adv_factored)
     d2_bmat: Any        # (nCells, 3, maxEdges+1) fxx/fxy/fyy fit rows
     d2w: Any            # (nEdges, 2, 3), -dc^2/12*dv baked in
@@ -241,6 +246,79 @@ def build_adv_cell_tensors(mesh: Mesh):
     s_cp = np.where(side_c == 0, 1.0, -1.0)
     dv_cell = np.asarray(mesh.dvEdge)[eoc]
     return d2w_own, d2w_opp, s_cp, dv_cell
+
+
+def build_adv_coefs(mesh: Mesh, deriv_two, coef_3rd_order: float):
+    """Compress deriv_two into per-edge advection stencils
+    (ref: atm_adv_coef_compression, mpas_atm_core.F:1113-1266).
+    adv_coefs include the dvEdge factor; adv_coefs_3rd pre-scaled by
+    config_coef_3rd_order (ref: atm_couple_coef_3rd_order)."""
+    nE = mesh.nEdges
+    coc = np.asarray(mesh.cellsOnCell)
+    nEoC = np.asarray(mesh.nEdgesOnCell)
+    coe = np.asarray(mesh.cellsOnEdge)
+    dc = np.asarray(mesh.dcEdge)
+    dv = np.asarray(mesh.dvEdge)
+
+    # stencil width: 2 cells + their distinct neighbors; N_ADV (=10) fits
+    # maxEdges=6 quasi-uniform meshes, variable-resolution meshes can have
+    # 7+-sided cells so the pad adapts (ref dims advCellsForEdge FIFTEEN,
+    # core_atmosphere/Registry.xml)
+    n_adv = max(N_ADV, 2 * mesh.maxEdges)
+    mE = mesh.maxEdges
+    c1, c2 = coe[:, 0], coe[:, 1]
+
+    # Vectorized stencil dedup (replaces the per-edge Python loop; same
+    # candidate order as the reference, so slot layout and accumulation
+    # order — hence bits — are identical):
+    # candidates per edge = [c1, c2, coc[c1,:], coc[c2,:]]  (S = 2+2*mE)
+    S = 2 + 2 * mE
+    cand = np.concatenate([c1[:, None], c2[:, None], coc[c1], coc[c2]],
+                          axis=1)                               # (nE, S)
+    i_idx = np.arange(mE)[None, :]
+    valid = np.concatenate(
+        [np.ones((nE, 2), bool), i_idx < nEoC[c1][:, None],
+         i_idx < nEoC[c2][:, None]], axis=1)                    # (nE, S)
+    # first occurrence of each candidate among the valid slots
+    eq = cand[:, :, None] == cand[:, None, :]                   # (nE, S, S)
+    earlier = np.tril(np.ones((S, S), bool), -1)[None]
+    dup = np.any(eq & earlier & valid[:, None, :], axis=2)
+    is_first = valid & ~dup
+    slot = np.cumsum(is_first, axis=1) - 1                      # rank if first
+    # map every valid candidate to its first occurrence's compressed slot
+    first_j = np.argmax(eq & is_first[:, None, :], axis=2)      # (nE, S)
+    tgt = np.take_along_axis(slot, first_j, axis=1)             # (nE, S)
+    nAdv = np.sum(is_first, axis=1).astype(np.int64)
+
+    advCells = np.zeros((nE, n_adv), dtype=np.int64)
+    rows = np.repeat(np.arange(nE), S).reshape(nE, S)
+    advCells[rows[is_first], slot[is_first]] = cand[is_first]
+
+    # contributions in the reference's order (c1 self, c1 nbrs, c2 self,
+    # c2 nbrs), accumulated slot-wise with np.add.at (ordered, sequential
+    # — matches the loop's += order bitwise)
+    contrib = np.concatenate(
+        [deriv_two[:, 0, 0][:, None], deriv_two[:, 1, 0][:, None],
+         deriv_two[:, 0, 1:mE + 1], deriv_two[:, 1, 1:mE + 1]], axis=1)
+    sgn3 = np.concatenate(
+        [np.ones((nE, 1)), -np.ones((nE, 1)),
+         np.ones((nE, mE)), -np.ones((nE, mE))], axis=1)
+    order = np.array([0] + list(range(2, 2 + mE))
+                     + [1] + list(range(2 + mE, S)))
+    a = np.zeros((nE, n_adv))
+    a3 = np.zeros((nE, n_adv))
+    flat_rows = rows[:, order][valid[:, order]]
+    flat_tgt = tgt[:, order][valid[:, order]]
+    np.add.at(a, (flat_rows, flat_tgt), contrib[:, order][valid[:, order]])
+    np.add.at(a3, (flat_rows, flat_tgt),
+              (contrib * sgn3)[:, order][valid[:, order]])
+    a *= -(dc ** 2)[:, None] / 12.0
+    a3 *= -(dc ** 2)[:, None] / 12.0
+    a[np.arange(nE), tgt[:, 0]] += 0.5
+    a[np.arange(nE), tgt[:, 1]] += 0.5
+    coefs = dv[:, None] * a
+    coefs3 = dv[:, None] * a3 * coef_3rd_order
+    return (advCells.astype(np.int32), coefs, coefs3, nAdv)
 
 
 def build_deformation_weights(mesh: Mesh):

@@ -22,9 +22,10 @@ from mpas_tpu_torch.ops.reconstruct import (build_reconstruct_coeffs,
 
 
 def parse_mesh_spec(spec: str):
-    """icos:N | hex:NX,NY,DC | channel:NX,NY,DC | varres:N[,RATIO] -> the
-    port's Mesh (CPU tensors); icos and varres meshes go through the disk
-    cache (mesh/cache.py)."""
+    """icos:N | hex:NX,NY,DC | channel:NX,NY,DC | varres:N[,RATIO] |
+    file:PATH | PATH.nc -> the port's Mesh (CPU tensors); icos and varres
+    meshes go through the disk cache (mesh/cache.py); a grid file (classic
+    NetCDF or netCDF4) is read by mesh/gridfile.py."""
     kind, _, rest = spec.partition(":")
     if kind == "icos":
         from mpas_tpu_torch.mesh.cache import cached
@@ -51,9 +52,10 @@ def parse_mesh_spec(spec: str):
                       lambda: variable_res_mesh(n, iterations=30,
                                                 ratio=ratio))
     if kind == "file" or spec.endswith(".nc"):
-        raise NotImplementedError(
-            f"mesh spec {spec!r}: reading an MPAS grid file needs "
-            "mesh/gridfile.py, which mpas_tpu_torch has not ported yet")
+        # an MPAS grid.nc / init.nc (ref mesh contract,
+        # core_sw/Registry.xml:54-167)
+        from mpas_tpu_torch.mesh.gridfile import mesh_from_netcdf
+        return mesh_from_netcdf(rest if kind == "file" else spec)
     raise ValueError(f"unknown mesh spec {spec!r}")
 
 

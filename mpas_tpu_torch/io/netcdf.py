@@ -1,5 +1,5 @@
-"""Minimal NetCDF-3 (classic + 64-bit offset) reader/writer (port of
-mpas_tpu/io/netcdf.py).
+"""Minimal NetCDF-3 (classic + 64-bit offset) reader/writer, and the
+dispatch to the netCDF4/HDF5 reader (port of mpas_tpu/io/netcdf.py).
 
 Stands in for the reference's PIO/netCDF layer (ref: src/framework/
 mpas_io.F wraps PIO for pnetcdf/netcdf I/O). scipy.io.netcdf_file handles
@@ -15,17 +15,16 @@ from scipy.io import netcdf_file
 
 
 def read_netcdf(path: str, variables=None):
-    """Read variables + dims + attrs from a classic NetCDF file into numpy.
+    """Read variables + dims + attrs from a NetCDF file into numpy.
 
-    A netCDF4/HDF5 file ('\\x89HDF' magic) raises NotImplementedError: its
-    reader, io/hdf5.py, is not ported yet. The run driver writes classic
-    files only."""
+    Dispatches on the file magic: classic NetCDF-3 via scipy, netCDF4/HDF5
+    ('\\x89HDF') via the pure-python HDF5 parser (io/hdf5.py), as the
+    reference's multi-iotype open does (ref: mpas_io.F:144-200)."""
     with open(path, "rb") as fh:
         magic = fh.read(8)
     if magic[:4] == b"\x89HDF":
-        raise NotImplementedError(
-            f"{path} is netCDF4/HDF5; mpas_tpu_torch reads classic NetCDF "
-            "only (the HDF5 reader, io/hdf5.py, is not ported yet)")
+        from mpas_tpu_torch.io.hdf5 import read_hdf5
+        return read_hdf5(path, variables)
     out = {}
     with netcdf_file(path, "r", mmap=False) as f:
         dims = dict(f.dimensions)
@@ -60,3 +59,10 @@ def write_netcdf(path: str, dims: dict, variables: dict, attrs: dict = None):
                 arr = arr.astype(np.float32)
             var = f.createVariable(name, arr.dtype, dnames)
             var[:] = arr
+
+
+def append_record(path_vars: dict, rec_arrays: dict):
+    """Accumulate records in memory before a write (scipy's netcdf_file
+    has no true append)."""
+    for k, v in rec_arrays.items():
+        path_vars.setdefault(k, []).append(np.asarray(v))

@@ -126,3 +126,11 @@ class Mesh:
 
     def to(self, device, dtype) -> "Mesh":
         return to_device(self, device, dtype)
+
+    def validate(self):
+        """Cheap structural invariants (host-side)."""
+        assert tuple(self.cellsOnEdge.shape) == (self.nEdges, 2)
+        assert tuple(self.edgesOnCell.shape) == (self.nCells, self.maxEdges)
+        assert tuple(self.weightsOnEdge.shape) == (self.nEdges,
+                                                   self.maxEdges2)
+        assert int(self.nEdgesOnCell.max()) <= self.maxEdges

@@ -6,6 +6,7 @@ no JAX, so this file imports none and runs without the suite's conftest:
     python -m pytest -o addopts="" --noconftest -m cuda tests/test_torch_cuda.py
 
 Shapes are those of the paths (jw_120km: 40,962 cells x 26 levels;
+real_120km: 40,962 cells x 55 levels;
 supercell_2km: 9,216 cells x 40 levels; jw_var60_15: 23,000 cells x 26
 levels at maxEdges 8; sw_tc5_120km: 40,962 cells at K = 1 and 2;
 ocean_channel_10km: 6,336 cells at K = 1, 20 and 40; the flat loopback
@@ -33,14 +34,15 @@ from mpas_tpu_torch.kernels.acoustic import (acoustic_cell_update,
 from mpas_tpu_torch.kernels.build import load_library
 from mpas_tpu_torch.kernels.tinydot import tinydot, tinydot_plain
 
-# (nC, nz) per path, K1 at jw_120km_nz55's 55 levels, and at the flat
+# (nC, nz) per path, K1 at real_120km's 55 levels, and at the flat
 # loopback layout of jw_120km sharded 4 ways (4 x 12,105 padded cells)
 PATHS = [(40962, 26), (9216, 40), (23000, 26), (40962, 55), (48420, 26)]
 # (nC, P, I, K) of the TRiSK and second-derivative contractions of the
 # atmosphere paths (I = maxEdges), and the shallow-water TRiSK pair
 K2_SHAPES = [(nc, P, mE, K) for nc, nz, mE in ((40962, 26, 6),
                                                (9216, 40, 6),
-                                               (23000, 26, 8))
+                                               (23000, 26, 8),
+                                               (40962, 55, 6))
              for P, K in ((mE, nz), (mE, 2 * nz), (3, nz))] \
     + [(40962, 6, 6, 1), (40962, 6, 6, 2)] \
     + [(6336, 6, 6, K) for K in (1, 20, 40)] \
@@ -473,6 +475,150 @@ def test_command_line_on_the_card_matches_the_cpu(cuda_device, tmp_path,
         out[where] = read_netcdf(str(tmp_path / where / final))[0]
     assert counts["cuda"] > 0 and counts["cpu"] == 0
     assert sorted(out["cuda"]) == sorted(out["cpu"])
+    for k, ref in out["cpu"].items():
+        if k != "xtime":
+            scale = max(np.abs(ref).max(), 1e-300)
+            assert np.abs(out["cuda"][k] - ref).max() <= 1e-11 * scale, k
+
+
+def _first_guess(path, dlat=10.0):
+    """A small global first guess (the analytic profiles of the reference
+    package's real-data tests on 7 levels, 200 m cos(lat) terrain),
+    written with the port's write_met_file."""
+    from mpas_tpu_torch.cores.init_atmosphere import met_reader as mr
+    ny, nx = int(180 / dlat) + 1, int(360 / dlat)
+    la = np.radians(-90.0 + dlat * np.arange(ny))[:, None] * np.ones(nx)
+    meta = dict(hdate="2020-01-01_00:00:00", xfcst=0.0, nx=nx, ny=ny,
+                iproj=0, startlat=-90.0, startlon=0.0, deltalat=dlat,
+                deltalon=dlat, earth_radius=6371.229,
+                is_wind_grid_rel=False)
+    fields = []
+    for p in (100000.0, 85000.0, 70000.0, 50000.0, 30000.0, 20000.0,
+              10000.0):
+        lp = np.log(101325.0 / p)
+        for name, slab in (
+                ("TT", 288.0 - 55.0 * lp / np.log(10.1325)
+                 + 10.0 * np.cos(la)),
+                ("GHT", 287.0 * 250.0 / 9.81 * lp
+                 * (1.0 + 0.01 * np.cos(la))),
+                ("UU", 20.0 * np.sin(2.0 * la) ** 2 * p / 1e5),
+                ("VV", np.zeros_like(la)), ("RH", 50.0 * p / 1e5
+                                            + np.zeros_like(la))):
+            fields.append(mr.MetField(field=name, units="-", desc=name,
+                                      xlvl=p, slab=slab, **meta))
+    for name, slab in (("PSFC", 101325.0 - 500.0 * np.cos(la)),
+                       ("SKINTEMP", 288.0 + 12.0 * np.cos(la)),
+                       ("SOILHGT", 200.0 * np.maximum(np.cos(la), 0.0))):
+        fields.append(mr.MetField(field=name, units="-", desc=name,
+                                  xlvl=200100.0, slab=slab, **meta))
+    mr.write_met_file(str(path), fields)
+    return mr.read_met_file(str(path))
+
+
+@pytest.mark.cuda
+def test_real_data_steps_on_the_card_match_the_cpu(cuda_device, tmp_path):
+    """init_real on the 642-cell sphere (10 levels): its tensors move to
+    the card unchanged, and 3 steps there launch 12 K1 and 15 K2 a step
+    and agree with the CPU's plain path at 1e-11 x max|CPU|; qv stays
+    >= 0 on both."""
+    import dataclasses
+
+    from mpas_tpu_torch.cores.atmosphere.config import AtmConfig
+    from mpas_tpu_torch.cores.atmosphere.time_integration import (
+        init_carry, run_steps)
+    from mpas_tpu_torch.cores.init_atmosphere.real_case import init_real
+    from mpas_tpu_torch.mesh.sphere import icosahedral_mesh
+
+    cfg = AtmConfig(config_nvertlevels=10, config_dt=1200.0,
+                    config_len_disp=960000.0)
+    grid, state, diag, _ = init_real(icosahedral_mesh(8, lloyd_iters=2),
+                                     cfg, _first_guess(tmp_path / "FILE"))
+    g_card = grid.to(cuda_device, torch.float64)
+    for obj, moved in ((grid, g_card), (grid.mesh, g_card.mesh),
+                       (state, state.to(cuda_device, torch.float64))):
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            if isinstance(v, torch.Tensor):
+                w = getattr(moved, f.name)
+                assert w.device.type == "cuda"
+                assert torch.equal(w.cpu(), v.to(w.dtype)), f.name
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        g = grid.to(dev, torch.float64)
+        carry = init_carry(g, cfg, state.to(dev, torch.float64),
+                           diag.to(dev, torch.float64), cfg.config_dt)
+        kernels.reset_launch_counts()      # after init_carry's one K2
+        out[dev.type] = run_steps(g, cfg, carry, cfg.config_dt, 3)
+        if dev.type == "cuda":
+            assert kernels.launch_counts == {"acoustic_cell_update": 36,
+                                             "tinydot": 45}
+    for k in ("u", "w", "theta_m", "rho_zz", "scalars"):
+        assert_close([getattr(out["cuda"].state, k).cpu()],
+                     [getattr(out["cpu"].state, k)], 1e-11)
+    assert float(out["cuda"].state.scalars[..., 0].min()) >= 0.0
+
+
+@pytest.mark.cuda
+def test_regional_zones_and_iau_on_the_card_match_the_cpu(cuda_device):
+    """The zone nudging and reset on cells and edges, the LBC time
+    interpolation and the IAU tendencies on the card against the CPU at
+    1e-11 x max|CPU|."""
+    from mpas_tpu_torch.cores.atmosphere import boundaries as bdy
+    from mpas_tpu_torch.cores.atmosphere import iau
+    from mpas_tpu_torch.mesh.planar import box_hex_mesh
+
+    mesh = box_hex_mesh(20, 20, 10000.0)
+    masks = bdy.build_bdy_masks(mesh)
+    rng = np.random.default_rng(0)
+    nc, ne, nz = mesh.nCells, mesh.nEdges, 12
+    x = {k: torch.from_numpy(rng.standard_normal(shape)) for k, shape in (
+        ("cell", (nc, nz)), ("edge", (ne, nz)), ("drive_c", (nc, nz)),
+        ("drive_e", (ne, nz)), ("rho", (nc, nz)), ("inc_c", (nc, nz)),
+        ("inc_e", (ne, nz)))}
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        m = masks.to(dev, torch.float64)
+        y = {k: v.to(dev) for k, v in x.items()}
+        inc = iau.IAUIncrements(theta_incr=y["inc_c"], rho_incr=y["inc_c"],
+                                u_incr=y["inc_e"], qv_incr=None)
+        res = [bdy.relaxzone_tend(m, 60.0, y["cell"], y["drive_c"]),
+               bdy.relaxzone_tend(m, 60.0, y["edge"], y["drive_e"], True),
+               bdy.speczone_reset(m, y["cell"], y["drive_c"]),
+               bdy.speczone_reset(m, y["edge"], y["drive_e"], True),
+               bdy.lbc_interp({"a": y["cell"]}, {"a": y["drive_c"]}, 0.0,
+                              3600.0, 900.0)["a"]]
+        for el in (600.0, 30000.0):
+            res += [t for t in iau.iau_tendencies(
+                iau.IAUConfig("on"), inc, y["rho"].abs() + 0.5, el)
+                if t is not None]
+        out[dev.type] = res
+    for g, r in zip(out["cuda"], out["cpu"]):
+        assert g.device.type == "cuda"
+        if float(r.abs().max()) == 0.0:
+            assert float(g.abs().max()) == 0.0
+        else:
+            assert_close([g.cpu()], [r], 1e-11)
+
+
+@pytest.mark.cuda
+def test_command_line_from_a_grid_file_on_the_card(cuda_device, tmp_path,
+                                                   monkeypatch):
+    """python -m mpas_tpu_torch atmosphere --mesh file:<netCDF4 grid of
+    icos:8> --x64 on the card and with --cpu agree at 1e-11 x max|CPU|."""
+    from mpas_tpu_torch.__main__ import main
+    from mpas_tpu_torch.cores.sw.hooks import parse_mesh_spec
+    from mpas_tpu_torch.io.netcdf import read_netcdf
+    from mpas_tpu_torch.mesh.gridfile import mesh_to_netcdf
+    monkeypatch.setenv("MPAS_TPU_TORCH_CACHE", str(tmp_path / "cache"))
+    grid_file = tmp_path / "x1.642.grid.nc"
+    mesh_to_netcdf(parse_mesh_spec("icos:8"), str(grid_file), fmt="netcdf4")
+    final = "output.atmosphere.0000-01-01_01.00.00.nc"
+    out = {}
+    for where, extra in (("cuda", []), ("cpu", ["--cpu"])):
+        assert main(["atmosphere", "--mesh", f"file:{grid_file}", "--x64",
+                     "--duration", "1:00:00", "--run-dir",
+                     str(tmp_path / where)] + extra) == 0
+        out[where] = read_netcdf(str(tmp_path / where / final))[0]
     for k, ref in out["cpu"].items():
         if k != "xtime":
             scale = max(np.abs(ref).max(), 1e-300)

@@ -334,10 +334,22 @@ def test_netcdf_reads_across_packages_bit_for_bit(tmp_path, writer, reader):
 
 
 def test_hdf5_input_is_refused(tmp_path):
+    """netCDF4/HDF5 input goes to io/hdf5.py (no longer refused as such):
+    a truncated file is refused with its HDF5Error, a zero-filled
+    superblock reads as empty in both packages, and a netCDF4 file reads
+    back."""
+    from mpas_tpu_torch.io.hdf5 import HDF5Error
+    from mpas_tpu_torch.io.hdf5_write import write_hdf5
     path = tmp_path / "grid.nc"
-    path.write_bytes(b"\x89HDF\r\n\x1a\n" + bytes(64))
-    with pytest.raises(NotImplementedError, match="io/hdf5.py"):
+    path.write_bytes(b"\x89HDF\r\n\x1a\n")
+    with pytest.raises(HDF5Error):
         tnc.read_netcdf(str(path))
+    path.write_bytes(b"\x89HDF\r\n\x1a\n" + bytes(64))
+    assert tnc.read_netcdf(str(path)) == jnc.read_netcdf(str(path)) \
+        == ({}, {}, {"__vardims__": {}})
+    write_hdf5(str(path), {"n": 3}, {"y": (("n",), np.arange(3.0))})
+    v, d, _ = tnc.read_netcdf(str(path))
+    assert d == {"n": 3} and np.array_equal(v["y"], np.arange(3.0))
 
 
 # ---------------------------------------------------------------------------
@@ -407,11 +419,21 @@ def test_cached_mesh_equals_the_built_one(tmp_path, build):
 
 
 def test_mesh_specs(tmp_path):
+    """The generated specs, and grid files (file:PATH or PATH.nc): a
+    missing file raises, a written one reads back."""
+    from mpas_tpu_torch.mesh.gridfile import mesh_to_netcdf
     assert parse_mesh_spec("channel:8,26,10000").nCells == 192
-    assert parse_mesh_spec("hex:12,12,2000").nCells == 144
-    for spec in ("file:grid.nc", "x1.2562.grid.nc"):
-        with pytest.raises(NotImplementedError, match="mesh/gridfile.py"):
+    hexm = parse_mesh_spec("hex:12,12,2000")
+    assert hexm.nCells == 144
+    for spec in ("file:" + str(tmp_path / "grid.nc"),
+                 str(tmp_path / "x1.2562.grid.nc")):
+        with pytest.raises(FileNotFoundError):
             parse_mesh_spec(spec)
+    mesh_to_netcdf(hexm, str(tmp_path / "x1.144.grid.nc"), fmt="netcdf4")
+    for spec in ("file:" + str(tmp_path / "x1.144.grid.nc"),
+                 str(tmp_path / "x1.144.grid.nc")):
+        m = parse_mesh_spec(spec)
+        assert m.nCells == 144 and torch.equal(m.areaCell, hexm.areaCell)
     with pytest.raises(ValueError):
         parse_mesh_spec("cube:4")
 
@@ -520,8 +542,8 @@ def assert_close(got, ref, rel, name):
 
 GRID_FIELDS = ("zgrid", "zz", "zxu", "dss", "zb_cell", "zb3_cell", "defc_a",
                "defc_b", "recon_zonal", "recon_merid", "rho_base",
-               "rtheta_base", "exner_base", "d2_bmat", "d2w", "d2w_own",
-               "d2w_opp", "adv_sside", "dv_cell")
+               "rtheta_base", "exner_base", "pressure_base", "d2_bmat", "d2w",
+               "d2w_own", "d2w_opp", "adv_sside", "dv_cell")
 
 
 @pytest.mark.parametrize("part", ["grid", "vert", "state", "diag", "mesh"])
