@@ -18,16 +18,17 @@ seconds):
    real_120km (40,962 x 55); K2 at the TRiSK and second-derivative
    contractions of the four atmosphere paths (maxEdges 6, and 8 on the
    variable-resolution mesh; K = 55 and 110 on real_120km), at the
-   shallow-water TRiSK pair (K = 1
-   and 2) and at the ocean channel's three (6,336 cells: the barotropic
-   Coriolis reconstruction at K = 1, the baroclinic one at K = 20, the
-   q-term at K = 40). Each kernel is timed on the device with the host
-   excluded and the L2 cold (device_time_ms: a CUDA graph of launches
-   rotating over copies of the inputs, >100 MB apart, replayed 7 times;
-   min / median / max ms per launch), beside the least time its bytes and operations
-   allow (bound_ms), K2's one-call library equivalent (the einsum) timed
-   the same way, the wrapper's host us per call, and the plain version's
-   host-inclusive time, which is no yardstick;
+   shallow-water TRiSK pair (K = 1 and 2), at the ocean channel's three
+   (6,336 cells: the barotropic Coriolis reconstruction at K = 1, the
+   baroclinic one at K = 20, the q-term at K = 40) and ocean_global_120km's
+   (40,962 cells, K = 1, 60 and 120). Each kernel is timed on the device
+   with the host excluded and the L2 cold (device_time_ms: a CUDA graph of
+   launches rotating over copies of the inputs, >100 MB apart, replayed 7
+   times; min / median / max ms per launch), beside the least time its
+   bytes and operations allow (bound_ms), K2's one-call library
+   equivalent (the einsum) timed the same way, the wrapper's host us per
+   call, and the plain version's host-inclusive time, which is no
+   yardstick;
 4. small float64 trajectories on the card against the same runs on the
    CPU (phase 4b: the same in shards, phase 4c: over NCCL): JW (642 cells, 10 levels, 24 steps; worst err/tol against
    tests/golden/jw_case2.npz printed only), shallow-water TC5 (642
@@ -58,6 +59,17 @@ seconds):
    reset on cells, edges and a 3-D field, the LBC time interpolation) and
    the IAU tendencies inside and after their window on the 8,836-cell
    box_hex_mesh(96, 96, 3 km) at 55 levels, all held at 1e-11 x max;
+   each of the ocean's 15 init configurations (cores/ocean/init_configs.py
+   on the 192-cell channel and plane, a 132-cell box and the 642-cell
+   sphere, 6 levels) and init_global_ocean from synthetic_woa_dataset()
+   on the 642-cell sphere (10 levels), each followed by 2 steps of its
+   reference test's integrator, and ISOMIP+ with apply_land_ice_fluxes
+   between 3 split steps, held at 1e-11 x max (cvmix_wswsbf, whose 2
+   cvmix steps depart 8.4e-11 x max, at 5e-10 x max); bgc_step with
+   DMS, ecosys_step and carbon_step on 24 columns at 1e-11 x max; a
+   ForcingGroup over a 3-record file written here (constant, linear,
+   cyclic) equal to the CPU's, and build_state_pytree on the card from a
+   Registry.xml written here;
    4b. small float64 sharded runs on the card, all shards in one process
    (loopback), held to the same runs unsharded on the card at 1e-11 x
    max: JW (642 cells, 10 levels, 3 steps) on 2 and 4 shards, the ocean
@@ -116,14 +128,31 @@ seconds):
      10-km channel mesh, 20 levels, split-explicit at dt = 300 s (245 K2
      launches per step, from the config: 240 in the barotropic subcycles,
      no K1), conserving volume and heat, salinity uniform, walls closed;
+   - ocean_global_120km: the global ocean (mpas_tpu_torch.tools.
+     ocean_global) on jw_120km's 40,962-cell mesh, init_global_ocean from
+     a WOA-shaped 1-degree, 102-level dataset at 60 layers, 12 tracers
+     (T, S, 8 ecosys pools, DIC, ALK), split-explicit at dt = 900 s
+     (btr 60 s; 1,800 s turns non-finite at step 6: python -m
+     mpas_tpu_torch.tools.ocean_global) under the init's wind, then
+     ecosys_step and carbon_step; all 19 analysis members every 2 steps
+     and four particle trackers (one per vertical treatment, one particle
+     per ocean cell) every step: volume conserved, BGC pools >= 0, max |u|
+     < 5 m/s, 185 K2 launches in each step's dynamics (no K1), every
+     particle in an ocean cell; one profiled step with the shares of
+     dynamics, BGC, analysis and particles, each member's device ms; then
+     the members and one particle step in f64 on the card and the CPU at
+     1e-11 x max;
    5b. jw_120km_4way: jw_120km sharded 4 ways by sfc_partition (halo
      depth 4), float32, loopback on the card from jw_120km's start: the
      layout's host seconds, flat sizes and halo volume per depth, 12 K1 +
      15 K2 launches a step, dry mass over owned cells, and the gathered
      u, w, theta_m, rho_zz within the reference's f32 allowance, 2e-4 on
-     max |a - b| / (1 + |b|), of jw_120km's after the same 11 steps; then
-     then jw_120km and jw_120km_4way timed in turns (A, B, B, A, 5 steps
-     each); phase 3 at its flat K1/K2 shapes;
+     max |a - b| / (1 + |b|), of jw_120km's after the same 11 steps; its
+     carry written as restart shards (io/sharded.py, group_size 2), read
+     back (bit for bit with the gathered fields) and 2 steps from it bit
+     for bit with 2 steps from the carry in memory; then jw_120km and
+     jw_120km_4way timed in turns (A, B, B, A, 5 steps each); phase 3 at
+     its flat K1/K2 shapes;
    5c. ocean_channel_10km_4way: the same for the ocean channel (245 K2 a
      step, volume and heat over owned cells, u, h and tracers, the turns
      against ocean_channel_10km);
@@ -155,12 +184,12 @@ seconds):
      bound (bit for bit or not is printed).
 
 The second-to-last line is a JSON object with each kernel's numbers at
-its jw_120km float32 shape (launches summed over the twelve paths and
+its jw_120km float32 shape (launches summed over the thirteen paths and
 the command line's six runs), the last one {"ok": true, "device":
 {...}}. Without CUDA it fails before any result is printed.
 
 --profile DIR adds torch.profiler breakdowns of 3 steps of each of the
-twelve paths.
+thirteen paths.
 """
 
 from __future__ import annotations
@@ -220,7 +249,9 @@ K2_SHAPES = (("jw_120km", 40962, ((6, 6, 26), (6, 6, 52), (3, 6, 26))),
              ("real_120km", 40962, ((6, 6, 55), (6, 6, 110), (3, 6, 55))),
              ("sw_tc5_120km", 40962, ((6, 6, 1), (6, 6, 2))),
              ("ocean_channel_10km", OCEAN_CELLS, ((6, 6, 1), (6, 6, 20),
-                                                  (6, 6, 40))))
+                                                  (6, 6, 40))),
+             ("ocean_global_120km", 40962, ((6, 6, 1), (6, 6, 60),
+                                            (6, 6, 120))))
 
 
 def require(cond, msg):
@@ -1040,12 +1071,13 @@ def run_supercell_path(device, card):
     return cfg, grid, carry, counts
 
 
-def kernel_census(fn, module=None, regions=()):
+def kernel_census(fn, module=None, regions=(), spans=()):
     """(fn(), kernels, device busy ms) of one call of fn under
     torch.profiler: every kernel the call launched and the sum of their
     device times. With `regions`, functions of `module` wrapped in a
-    record_function span for the call: a fourth item maps each to the
-    device ms of the kernels it launched."""
+    record_function span for the call, and `spans`, names of spans fn
+    opens itself: a fourth item maps each to the device ms of the kernels
+    it launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1066,6 +1098,7 @@ def kernel_census(fn, module=None, regions=()):
     finally:
         for n, f in saved:
             setattr(module, n, f)
+    regions = tuple(regions) + tuple(spans)
     events = prof.key_averages()
     kern = [e for e in events if e.device_type == DeviceType.CUDA
             and e.key not in regions]
@@ -1779,6 +1812,265 @@ def check_small_ocean(device):
         compare_scaled(f"ocean {integrator}", fields)
 
 
+# the inits of cores/ocean/init_configs.py: (mesh, 2 steps of the
+# integrator of each one's reference test: tests/test_ocean_init_configs.py,
+# test_ocean_ecosys_inits.py, test_ocean_fidelity.py:150-154)
+OCEAN_INITS = {
+    "overflow": ("channel", dict(config_dt=20.0,
+                                 config_vert_mix_scheme="cvmix")),
+    "internal_waves": ("channel", dict(config_dt=30.0)),
+    "cosine_bell": ("sphere", dict(config_dt=600.0,
+                                   config_time_integrator="RK4",
+                                   config_mom_del2=0.0,
+                                   config_tracer_del2=0.0,
+                                   config_bottom_drag_coeff=0.0)),
+    "lock_exchange": ("channel", dict(config_dt=5.0)),
+    "sea_mount": ("channel", dict(config_dt=20.0)),
+    "ziso": ("channel", dict(config_dt=60.0)),
+    "soma": ("sphere", dict(config_dt=120.0)),
+    "isomip": ("channel", dict(config_dt=60.0)),
+    "sub_ice_shelf_2d": ("channel", dict(config_dt=30.0)),
+    "cvmix_wswsbf": ("channel", dict(config_dt=300.0,
+                                     config_vert_mix_scheme="cvmix")),
+    "global_ocean_idealized": ("sphere", dict(config_dt=120.0)),
+    "iso": ("sphere", dict(config_dt=120.0)),
+    "isomip_plus": ("box", dict(config_dt=30.0, config_time_integrator="RK4",
+                                config_eos_type="jm")),
+    "periodic_planar": ("plane", dict(config_dt=60.0,
+                                      config_time_integrator="RK4")),
+    "ecosys_column": ("box", dict(config_dt=60.0,
+                                  config_time_integrator="RK4")),
+    "global_ocean": ("sphere", dict(config_dt=300.0,
+                                    config_time_integrator="RK4",
+                                    config_mom_del2=1.0e4,
+                                    config_tracer_del2=1.0e3)),
+}
+OCN_STATE = ("u", "layerThickness", "tracers", "ubtr")
+# the inits' card-vs-CPU bound where PHYS_RTOL does not hold: cvmix_wswsbf's
+# 2 cvmix steps depart 8.4e-11 x max in u and 3.2e-11 x max in ubtr on an
+# H100 (700 W), where every other init stays below 9e-12 x max
+OCEAN_INIT_RTOL = {"cvmix_wswsbf": 5e-10}
+
+
+def ocean_on_both(device, fn):
+    """fn(device) on the CPU and on the card in float64: {"cpu": {name:
+    numpy}, "cuda": ...} of the dicts of tensors it returns."""
+    return {w: {k: v.cpu().numpy() for k, v in fn(dev).items()}
+            for w, dev in (("cpu", torch.device("cpu")), ("cuda", device))}
+
+
+def check_small_ocean_inits(device, mesh8):
+    """Phase 4: each init of cores/ocean/init_configs.py (6 levels; the
+    channel on channel_hex_mesh(8, 26, 5 km), the plane on
+    planar_hex_mesh(12, 16, 10 km), the box on box_hex_mesh(8, 24, 2 km)
+    (132 cells),
+    the sphere the 642-cell one) and init_global_ocean from
+    synthetic_woa_dataset() on the 642-cell sphere (10 levels), then 2
+    steps of its reference test's integrator with its forcing, f64 on the
+    card vs the CPU at PHYS_RTOL x max, or OCEAN_INIT_RTOL's bound (the
+    inits are host numpy, the same bits on both; cvmix_wswsbf's 2 steps
+    differ by 4e-11 x max between the two packages on the CPU already)."""
+    from mpas_tpu_torch.cores.ocean import init_configs
+    from mpas_tpu_torch.cores.ocean.core import OcnConfig, run_steps
+    from mpas_tpu_torch.cores.ocean.init_global_ocean import (
+        init_global_ocean, synthetic_woa_dataset)
+    from mpas_tpu_torch.mesh.planar import (box_hex_mesh, channel_hex_mesh,
+                                            planar_hex_mesh)
+    meshes = {"channel": channel_hex_mesh(8, 26, 5000.0),
+              "plane": planar_hex_mesh(12, 16, 10000.0),
+              "box": box_hex_mesh(8, 24, 2000.0), "sphere": mesh8}
+    f64 = torch.float64
+    for name, (kind, cfg_kw) in OCEAN_INITS.items():
+        mesh = meshes[kind]
+        if name == "cosine_bell":            # the init keeps the radius
+            mesh = mesh.scaled(6371000.0)
+        if name == "global_ocean":
+            out = init_global_ocean(mesh, synthetic_woa_dataset(), nz=10)
+        else:
+            out = getattr(init_configs, f"init_{name}")(mesh, nz=6)
+        forcing = out[2] if len(out) == 3 and not isinstance(out[2], dict) \
+            else None
+        cfg = OcnConfig(**cfg_kw)
+
+        def run(dev):
+            st = run_steps(out[0].to(dev, f64), cfg, out[1].to(dev, f64), 2,
+                           None if forcing is None else forcing.to(dev, f64))
+            return {k: getattr(st, k) for k in OCN_STATE}
+        print(f"ocean init {name} ({out[0].mesh.nCells} cells x "
+              f"{out[0].nz}, {cfg.config_time_integrator} dt "
+              f"{cfg.config_dt:g} s{', forced' if forcing else ''}):")
+        compare_scaled(f"ocean init {name}", ocean_on_both(device, run),
+                       OCEAN_INIT_RTOL.get(name, PHYS_RTOL))
+
+
+def check_land_ice_fluxes(device):
+    """Phase 4: init_isomip_plus on box_hex_mesh(6, 12, 2 km), 8 levels,
+    warmed by 2.5 C, then 3 x (one split step of 60 s,
+    apply_land_ice_fluxes), f64 card vs CPU at PHYS_RTOL x max; the
+    cavity melts."""
+    from mpas_tpu_torch.cores.ocean.core import OcnConfig, run_steps
+    from mpas_tpu_torch.cores.ocean.init_configs import init_isomip_plus
+    from mpas_tpu_torch.cores.ocean.land_ice_flux import (
+        apply_land_ice_fluxes)
+    from mpas_tpu_torch.mesh.planar import box_hex_mesh
+    grid, state, extras = init_isomip_plus(box_hex_mesh(6, 12, 2000.0),
+                                           nz=8)
+    cfg = OcnConfig(config_dt=60.0)
+    f64 = torch.float64
+
+    def run(dev):
+        g, st = grid.to(dev, f64), state.to(dev, f64)
+        st = dataclasses.replace(st, tracers=st.tracers + torch.tensor(
+            [2.5, 0.0], dtype=f64, device=dev))
+        lip, draft = (extras[k].to(dev, f64)
+                      for k in ("landIcePressure", "landIceDraft"))
+        melt = []
+        for _ in range(3):
+            st, fx = apply_land_ice_fluxes(g, cfg, run_steps(g, cfg, st, 1),
+                                           lip, draft, 60.0)
+            melt.append(fx.melt_rate)
+        return dict({k: getattr(st, k) for k in OCN_STATE},
+                    melt_rate=torch.stack(melt))
+    fields = ocean_on_both(device, run)
+    print(f"isomip_plus + land-ice fluxes: total melt rate "
+          f"{fields['cuda']['melt_rate'].sum():.6e} m/s")
+    compare_scaled("land-ice fluxes", fields, PHYS_RTOL)
+    require(fields["cuda"]["melt_rate"].sum() > 0.0, "the cavity froze")
+
+
+def check_bgc_columns(device):
+    """Phase 4: bgc_step with DMS, ecosys_step and carbon_step on 24
+    seeded f64 columns of 16 levels, card vs CPU at PHYS_RTOL x max; the
+    pools stay >= 0."""
+    from mpas_tpu_torch.cores.ocean import bgc
+    from mpas_tpu_torch.cores.ocean.state import OcnState
+    rng = np.random.default_rng(19)
+    n, nz = 24, 16
+    h = rng.uniform(2.0, 40.0, (n, nz))
+    ts = np.stack([rng.uniform(-1.5, 30.0, (n, nz)),
+                   rng.uniform(32.0, 37.5, (n, nz))], -1)
+    npzd = rng.uniform(0.0, 3.0, (n, nz, 5))
+    eco = rng.uniform(0.0, 1.0, (n, nz, 8)) * np.array(
+        [30.0, 60.0, 6e-4, 1.0, 1.0, 0.5, 0.1, 0.1])
+    carbon = np.stack([rng.uniform(1.85e-3, 2.25e-3, (n, nz)),
+                       rng.uniform(2.2e-3, 2.45e-3, (n, nz))], -1)
+    sw, wind = rng.uniform(0.0, 400.0, n), rng.uniform(0.0, 15.0, n)
+
+    def run(dev):
+        def t(a):
+            return torch.as_tensor(a, dtype=torch.float64, device=dev)
+
+        def state(tr):
+            return OcnState(u=t(np.zeros((1, nz))), layerThickness=t(h),
+                            tracers=t(tr), ubtr=t(np.zeros(1)))
+        out = {"npzd_dms": bgc.bgc_step(state(np.concatenate([ts, npzd], -1)),
+                                        None, 1800.0, t(sw),
+                                        with_dms=True).tracers}
+        st = state(np.concatenate([ts, eco, carbon], -1))
+        for _ in range(3):
+            st = bgc.ecosys_step(st, None, 1800.0, t(sw))
+            st, diag = bgc.carbon_step(st, None, 1800.0, st.tracers[:, 0, 0],
+                                       st.tracers[:, 0, 1], t(wind), 10, 11)
+        return dict(out, ecosys_carbon=st.tracers, **diag)
+    fields = ocean_on_both(device, run)
+    compare_scaled("bgc columns", fields, PHYS_RTOL)
+    require(fields["cuda"]["npzd_dms"][..., 2:].min() >= 0.0
+            and fields["cuda"]["ecosys_carbon"][..., 2:].min() >= 0.0,
+            "a negative BGC pool")
+
+
+def check_forcing_group(device, tmp):
+    """Phase 4: a ForcingGroup over a 3-record classic NetCDF file written
+    here (windStressZonal on 5 cells at 00, 06 and 18 h): constant, linear
+    and cyclic (1-day cycle) interpolation at 9 times on the card, equal
+    to the same group on the CPU."""
+    from mpas_tpu_torch.framework.forcing import ForcingGroup, ForcingStream
+    from mpas_tpu_torch.framework.timekeeping import Time, TimeInterval
+    from mpas_tpu_torch.io.netcdf import write_netcdf
+    times = ["0001-03-01_00:00:00", "0001-03-01_06:00:00",
+             "0001-03-01_18:00:00"]
+    xt = np.zeros((3, 64), dtype="S1")
+    for i, t in enumerate(times):
+        xt[i, :len(t)] = [c.encode() for c in t]
+    path = os.path.join(tmp, "forcing.nc")
+    wind = np.random.default_rng(3).standard_normal((3, 5))
+    write_netcdf(path, {"Time": 3, "StrLen": 64, "nCells": 5},
+                 {"xtime": (("Time", "StrLen"), xt),
+                  "windStressZonal": (("Time", "nCells"), wind)})
+    t0 = Time.from_string(times[0])
+    kinds = {"constant": dict(), "linear": dict(),
+             "cyclic": dict(cycle_start=t0,
+                            cycle_duration=TimeInterval.from_seconds(86400))}
+    for kind, kw in kinds.items():
+        got = {}
+        for where, dev in (("cpu", "cpu"), ("cuda", device)):
+            g = ForcingGroup("ocean", device=dev, **kw)
+            g.add_field(ForcingStream(path, ["windStressZonal"]),
+                        "windStressZonal",
+                        interpolation="constant" if kind == "constant"
+                        else "linear")
+            got[where] = [g.get_forcing(t0 + TimeInterval.from_seconds(
+                h * 3600.0))["windStressZonal"] for h in
+                (-3, 0, 2.5, 6, 11, 18, 21, 30, 47)]
+        require(all(x.device.type == "cuda" for x in got["cuda"]),
+                "forcing not on the card")
+        require(all(torch.equal(a, b.cpu()) for a, b in
+                    zip(got["cpu"], got["cuda"])),
+                f"forcing {kind}: the card departs from the CPU")
+        print(f"forcing {kind}: 9 times on the card equal the CPU's")
+
+
+REGISTRY_XML = """<?xml version="1.0"?>
+<registry model="mpas" core="ocean" core_abbrev="ocn" version="8.0">
+  <dims>
+    <dim name="nCells" definition="file"/>
+    <dim name="nVertLevels" definition="namelist:config_nz"/>
+  </dims>
+  <nml_record name="time_management">
+    <nml_option name="config_dt" type="real" default_value="1800.0"/>
+    <nml_option name="config_nz" type="integer" default_value="60"/>
+  </nml_record>
+  <packages><package name="ecosysPKG"/><package name="gmPKG"/></packages>
+  <var_struct name="state" time_levs="2">
+    <var name="layerThickness" type="real" dimensions="nVertLevels nCells"/>
+    <var name="maxLevelCell" type="integer" dimensions="nCells"/>
+    <var name="landMask" type="logical" dimensions="nCells"/>
+    <var name="NO3" type="real" dimensions="nVertLevels nCells"
+         packages="ecosysPKG"/>
+    <var name="bolus" type="real" dimensions="nVertLevels nCells"
+         packages="gmPKG"/>
+  </var_struct>
+</registry>
+"""
+
+
+def check_registry(device, tmp):
+    """Phase 4: build_state_pytree on the card from a Registry.xml written
+    here, through the repository's registry compiler: shapes, dtypes and
+    package gating (gmPKG inactive)."""
+    from mpas_tpu_torch.framework.registry import (build_state_pytree,
+                                                   generate_config_class,
+                                                   load_schema)
+    path = os.path.join(tmp, "Registry.xml")
+    Path(path).write_text(REGISTRY_XML)
+    cfg = generate_config_class(path)()
+    tree = build_state_pytree(load_schema(path),
+                              {"nCells": 40962, "nVertLevels": cfg.config_nz},
+                              active_packages=["ecosysPKG"], device=device)
+    st = tree["state"]
+    want = {"layerThickness": ((60, 40962), torch.float64),
+            "maxLevelCell": ((40962,), torch.int32),
+            "landMask": ((40962,), torch.bool),
+            "NO3": ((60, 40962), torch.float64)}
+    require({k: (tuple(v.shape), v.dtype) for k, v in st.items()} == want,
+            f"registry state {st.keys()}")
+    require(all(v.device.type == "cuda" and not bool(v.any())
+                for v in st.values()), "registry state not zeros on the card")
+    print(f"registry: config_dt {cfg.config_dt}, state "
+          f"{ {k: tuple(v.shape) for k, v in st.items()} } on the card, "
+          "bolus gated out")
+
+
 def ocean_volume_heat(grid, state):
     """(volume, heat) = (sum h area, sum h T area), summed in float64."""
     area = grid.mesh.areaCell.double()[:, None]
@@ -1861,6 +2153,227 @@ def run_ocean_path(device, card):
     require(s_err <= s_tol, f"salinity left 35: {s_err:.3e}")
     require(u_wall == 0.0, f"flow through the walls: {u_wall:g}")
     return cfg, grid, state, counts, host
+
+
+OCEAN_GLOBAL = "ocean_global_120km"
+OCEAN_GLOBAL_NZ = 60               # E3SM's global MPAS-Ocean meshes
+OCEAN_GLOBAL_PARTS = ("dynamics", "bgc", "analysis", "particles")
+
+
+def member_census(driver, grid, cfg, state, forcing):
+    """(host ms of driver.compute_all, {member: device ms}) of one call
+    under torch.profiler, each member's compute in a record_function
+    span (the driver's signature dispatch kept through functools.wraps)."""
+    import functools
+
+    from torch.profiler import record_function
+    insts = driver._instances
+    saved = {n: inst.compute for n, inst in insts.items()}
+
+    def spanned(name, fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return call
+    host = []
+
+    def run():
+        t0 = time.perf_counter()
+        driver.compute_all(grid, cfg, state, forcing=forcing)
+        host.append(1e3 * (time.perf_counter() - t0))
+    try:
+        for n, fn in saved.items():
+            insts[n].compute = spanned(n, fn)
+        census = kernel_census(run, spans=tuple(saved))
+    finally:
+        for n in saved:
+            del insts[n].compute
+            driver.history[n].pop()
+    return host[0], census
+
+
+def run_ocean_global_path(device, card, mesh64, profile=None):
+    """Phase 5, ocean_global_120km (mpas_tpu_torch.tools.ocean_global):
+    init_global_ocean on phase 5's 40,962-cell mesh from the WOA-shaped
+    180 x 360 x 102 dataset at 60 layers, 12 tracers (T, S, 8 ecosys
+    pools, DIC, ALK), float32 on the card; a step is split_step (dt
+    900 s, btr 60 s) with the init's wind, ecosys_step and carbon_step;
+    every analysis member at a 2-step interval and four ParticleTrackers
+    (one per vertical treatment, one particle per ocean cell) every step.
+    Host setup (its seconds), copy to the card, one warm step, MAIN_STEPS
+    timed steps; the launch counters are zeroed just before the warm
+    step. Gates: every field finite, volume conserved, BGC pools >= 0,
+    max |u| < 5 m/s, K2 tinydot_launches_per_split_step(cfg) times in
+    each step's dynamics and no K1, every particle in an ocean cell.
+    Then one profiled step (kernels, busy, each part's device ms), each
+    member's device ms and the driver's host ms, and the members and one
+    particle step in float64 from the final state on the card and the
+    CPU at PHYS_RTOL x max with the same NaN positions."""
+    from mpas_tpu_torch import kernels
+    from mpas_tpu_torch.cores.ocean.core import (
+        tinydot_launches_per_split_step)
+    from mpas_tpu_torch.ops.reconstruct import build_reconstruct_coeffs
+    from mpas_tpu_torch.tools import ocean_global as og
+    name, f32 = OCEAN_GLOBAL, torch.float32
+    t0 = time.perf_counter()
+    cfg, host_grid, host_state, host_forcing = og.setup(mesh64,
+                                                        OCEAN_GLOBAL_NZ)
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    coeffs = build_reconstruct_coeffs(host_grid.mesh)
+    coeffs_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grid, state, forcing = (host_grid.to(device, f32),
+                            host_state.to(device, f32),
+                            host_forcing.to(device, f32))
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    mesh, dt = grid.mesh, cfg.config_dt
+    nc, nz, nt = mesh.nCells, grid.nz, state.tracers.shape[-1]
+    t0 = time.perf_counter()
+    sw = og.shortwave(grid)
+    driver = og.analysis_driver(grid, cfg, 2 * dt)
+    trackers = og.trackers(grid, cfg, state, coeffs)
+    torch.cuda.synchronize()
+    members_s = time.perf_counter() - t0
+    ocean = torch.zeros(nc, dtype=torch.bool, device=device)
+    ocean[og.ocean_cells(grid)] = True
+    n_ocean = int(ocean.sum())
+    print(f"{name} setup: {nc} cells x {nz} layers, {nt} tracers, "
+          f"{n_ocean} ocean cells, dt {dt:g} s, btr {cfg.config_btr_dt:g} "
+          f"s; host init {init_s:.2f} s, reconstruction weights "
+          f"{coeffs_s:.2f} s, copy to card {copy_s:.2f} s, analysis "
+          f"members and 4 x {n_ocean} particles {members_s:.2f} s")
+    require((nc, nz, nt, len(driver.members))
+            == (mesh64.nCells, OCEAN_GLOBAL_NZ, 12, 19),
+            f"{name} built the wrong size")
+
+    k2 = tinydot_launches_per_split_step(cfg)
+    vol0 = og.volume(grid, state)
+    box = {"state": state, "t": 0.0}
+
+    def step(counts=None):
+        """One step of the path; counts (a list) gets the K2 launches of
+        its dynamics."""
+        before = kernels.launch_counts["tinydot"]
+        s = og.dynamics(grid, cfg, box["state"], forcing)
+        if counts is not None:
+            counts.append(kernels.launch_counts["tinydot"] - before)
+        s = og.bgc(grid, s, dt, sw)
+        box["t"] += dt
+        og.analysis(driver, grid, cfg, s, box["t"], forcing)
+        og.particles(trackers, grid, cfg, s, dt)
+        box["state"] = s
+
+    kernels.reset_launch_counts()
+    og.analysis(driver, grid, cfg, state, 0.0, forcing)
+    k2_seen = []
+    step(k2_seen)                                           # warm step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    for _ in range(MAIN_STEPS):
+        step(k2_seen)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = dict(kernels.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    state = box["state"]
+
+    require(counts["acoustic_cell_update"] == 0, counts)
+    require(k2_seen == [k2] * (MAIN_STEPS + 1),
+            f"{name}: K2 launches per step's dynamics {k2_seen}, the config "
+            f"implies {k2}")
+    for k in OCN_STATE:
+        require(bool(torch.isfinite(getattr(state, k)).all()), k)
+    vol_drift = abs(og.volume(grid, state) - vol0) / vol0
+    bgc_min = float(state.tracers[..., 2:].min())
+    u_max = float(state.u.abs().max())
+    land = ~ocean
+    land_e = land[mesh.cellsOnEdge[:, 0]] & land[mesh.cellsOnEdge[:, 1]]
+    u_land = float(state.u[land_e].abs().max())
+    in_ocean = [bool(ocean[t.state.cell].all()) for t in trackers]
+    ms = 1e3 * elapsed / MAIN_STEPS
+    print(f"{name} float32 on {card}: {MAIN_STEPS} steps in {elapsed:.3f} s "
+          f"= {ms:.2f} ms/step, {nc * MAIN_STEPS / elapsed:.1f} cell-column "
+          f"updates/s (columns of {nz} layers); peak device memory "
+          f"{peak_gb:.2f} GB; volume drift {vol_drift:.3e}, min BGC pool "
+          f"{bgc_min:.3e}, max |u| {u_max:.4f} m/s, max |u| on the "
+          f"{int(land_e.sum())} land edges {u_land:.4f} m/s (not held: "
+          f"the reference's land columns keep 2 active levels, ROADMAP §3); "
+          f"particles in ocean cells {in_ocean}; launches {counts} (per "
+          f"step's dynamics: K1 0, K2 {k2}; okuboWeiss adds one K2 on "
+          f"analysis steps)")
+    require(vol_drift <= 1e-5, f"{name}: volume not conserved {vol_drift}")
+    require(bgc_min >= 0.0, f"{name}: a negative BGC pool {bgc_min}")
+    require(u_max < og.MAX_U, f"{name}: max |u| {u_max}")
+    require(all(in_ocean), f"{name}: a particle left the ocean")
+
+    parts = kernel_census(step, og, OCEAN_GLOBAL_PARTS)
+    n_kern, busy, part_ms = parts[1:]
+    idle = 100.0 * (1.0 - busy / ms)
+    print(f"{name} one profiled step (analysis due) on {card}: {n_kern} "
+          f"kernels, device busy {busy:.3f} ms ({idle:.1f}% idle against "
+          f"the timed {ms:.2f} ms/step); "
+          + "; ".join(f"{k} {part_ms[k]:.3f} ms "
+                      f"({100.0 * part_ms[k] / busy:.1f}%)"
+                      for k in OCEAN_GLOBAL_PARTS))
+    host_ms, census = member_census(driver, grid, cfg, box["state"], forcing)
+    print(f"{name} analysis, all 19 members once: driver host "
+          f"{host_ms:.2f} ms, {census[1]} kernels, device {census[2]:.3f} "
+          f"ms; " + ", ".join(f"{k} {v:.3f}" for k, v in
+                              sorted(census[3].items(),
+                                     key=lambda kv: -kv[1])))
+    if profile:
+        profile_steps(name, step, profile, og, OCEAN_GLOBAL_PARTS)
+    check_ocean_global_f64(device, grid, cfg, box["state"], forcing)
+    return counts
+
+
+def check_ocean_global_f64(device, grid, cfg, state, forcing):
+    """ocean_global_120km's final f32 state cast to f64: every member
+    (compute_all) and one step of the four ParticleTrackers, on the card
+    and on the CPU, at PHYS_RTOL x max with the same NaN positions."""
+    from mpas_tpu_torch.tools import ocean_global as og
+    f64 = torch.float64
+    out = {}
+    for where, dev in (("cpu", torch.device("cpu")), ("cuda", device)):
+        t0 = time.perf_counter()
+        g, s, f = grid.to(dev, f64), state.to(dev, f64), forcing.to(dev, f64)
+        driver = og.analysis_driver(g, cfg, 3600.0)
+        driver.compute_all(g, cfg, s, forcing=f)
+        trs = og.trackers(g, cfg, s)
+        og.particles(trs, g, cfg, s, cfg.config_dt)
+        res = {f"{n}.{k}": v for n, h in driver.history.items()
+               for k, v in h[0][1].items() if isinstance(v, torch.Tensor)}
+        for mode, t in zip(og.VERTICAL_MODES, trs):
+            res.update({f"particles {mode}.{fl.name}": getattr(t.state,
+                                                               fl.name)
+                        for fl in dataclasses.fields(t.state)})
+        out[where] = {k: v.cpu().numpy() for k, v in res.items()}
+        print(f"{OCEAN_GLOBAL} f64 members + particle step on {where}: "
+              f"{time.perf_counter() - t0:.2f} s")
+    worst = (0.0, "")
+    for k, ref in out["cpu"].items():
+        got = out["cuda"][k]
+        nan = np.isnan(ref) if ref.dtype.kind == "f" else np.zeros(
+            ref.shape, bool)
+        require(np.array_equal(nan, np.isnan(got) if got.dtype.kind == "f"
+                               else nan), f"{k}: NaN positions differ")
+        fin = ~nan
+        if not fin.any():
+            continue
+        scale = float(np.abs(ref[fin]).max())
+        err = float(np.abs(got[fin].astype(np.float64)
+                           - ref[fin].astype(np.float64)).max())
+        require(err <= PHYS_RTOL * scale,
+                f"{OCEAN_GLOBAL} {k}: the card departs from the CPU "
+                f"({err:.3e} of max {scale:.3e})")
+        if scale > 0 and err / scale > worst[0]:
+            worst = (err / scale, k)
+    print(f"{OCEAN_GLOBAL} f64 card vs CPU: {len(out['cpu'])} outputs held "
+          f"at {PHYS_RTOL:g} x max; worst {worst[0]:.3e} x max ({worst[1]})")
 
 
 # --- sharded runs (mpas_tpu_torch.parallel, the three distributed.py) ---
@@ -2137,11 +2650,56 @@ def run_sharded_jw_path(device, card, host, ref, profile=None):
     require(drift[0] <= 1e-5, f"{name}: dry mass not conserved")
     compare_sharded(name, gathered(sm, group, ATM_FIELDS, carry_l.state,
                                    grid.mesh), ref, SHARD_REL_F32, mixed=True)
+    check_sharded_restart(name, satm, group, carry_l,
+                          lambda c: run1(grid_l, c, 2), grid.mesh)
     step = stepper(lambda c: run1(grid_l, c, 1), carry_l)
     if profile:
         from mpas_tpu_torch.cores.atmosphere import time_integration as ti
         profile_steps(name, step, profile, ti, PROFILE_REGIONS)
     return counts, grid_l.mesh.nCells, step
+
+
+def check_sharded_restart(name, satm, group, carry_l, run2, mesh):
+    """Phase 5b: the sharded carry written by io.sharded.write_sharded
+    (group_size 2) and read back by read_sharded: every reassembled field
+    equals the gathered one, and 2 steps from the re-sharded restart equal
+    2 steps from the carry in memory, bit for bit; the write and read
+    seconds and the shards' bytes."""
+    from mpas_tpu_torch.cores.atmosphere import distributed as adist
+    from mpas_tpu_torch.io.sharded import read_sharded, write_sharded
+    from mpas_tpu_torch.parallel.runner import gather_field, place
+    sm = satm.smesh
+    n_global = {"cell": mesh.nCells, "edge": mesh.nEdges,
+                "vertex": mesh.nVertices}
+    with tempfile.TemporaryDirectory(prefix="restart_shards") as tmp:
+        fields, kinds = adist.carry_restart_fields(carry_l, group)
+        t0 = time.perf_counter()
+        write_sharded(tmp, sm, fields, kinds, n_global, group_size=2)
+        write_s = time.perf_counter() - t0
+        files = sorted(Path(tmp).glob("restart_shard_*.npz"))
+        nbytes = sum(f.stat().st_size for f in files)
+        t0 = time.perf_counter()
+        back, _ = read_sharded(tmp)
+        read_s = time.perf_counter() - t0
+    for k, v in fields.items():
+        require(np.array_equal(back[k], gather_field(
+            sm, v, kinds[k], n_global[kinds[k]])),
+            f"{name} restart: {k} reassembled differs from the gathered")
+    restarted = place(adist.shard_atm_carry(
+        satm, adist.carry_from_restart_fields(back)), group,
+        carry_l.state.u.dtype)
+    a, _ = adist.carry_restart_fields(run2(carry_l), group)
+    b, _ = adist.carry_restart_fields(run2(restarted), group)
+    same = [k for k in a if np.array_equal(
+        gather_field(sm, a[k], kinds[k], n_global[kinds[k]]),
+        gather_field(sm, b[k], kinds[k], n_global[kinds[k]]))]
+    print(f"{name} sharded restart: {len(fields)} carry fields in "
+          f"{len(files)} shards (group_size 2), {nbytes / 1e6:.1f} MB; "
+          f"write {write_s:.2f} s, read {read_s:.2f} s; reassembled = "
+          f"gathered bit for bit; 2 steps from the restart = 2 steps in "
+          f"memory bit for bit in {len(same)} of {len(a)} fields")
+    require(len(same) == len(a),
+            f"{name} restart: 2 steps differ in {sorted(set(a) - set(same))}")
 
 
 def run_sharded_ocean_path(device, card, host, ref, profile=None):
@@ -2607,7 +3165,8 @@ def main():
                              "supercell_2km_mesoref, supercell_2km_convperm, "
                              "supercell_2km_kf, supercell_2km_cam, "
                              "jw_var60_15, "
-                             "ocean_channel_10km and the two 4-way paths; "
+                             "ocean_channel_10km, the two 4-way paths and "
+                             "ocean_global_120km; "
                              "the kernel tables go to "
                              "DIR/profile_<path>.txt")
     parser.add_argument("--seed", type=int, default=0,
@@ -2653,6 +3212,13 @@ def main():
     timed("f64 urban and slab ocean", check_urban_oml, device)
     timed("small f64 kf_eta deep columns", check_kf_column, device)
     timed("small f64 ocean", check_small_ocean, device)
+    timed("small f64 ocean inits + 2 steps", check_small_ocean_inits, device,
+          mesh8)
+    timed("f64 land-ice fluxes", check_land_ice_fluxes, device)
+    timed("f64 BGC and carbonate columns", check_bgc_columns, device)
+    with tempfile.TemporaryDirectory(prefix="framework_io") as tmp:
+        timed("forcing group", check_forcing_group, device, tmp)
+        timed("registry", check_registry, device, tmp)
     timed("small f64 real-data init + 3 steps", check_small_real, device,
           mesh8)
     timed("f64 regional zones, LBC and IAU", check_regional_iau, device)
@@ -2708,7 +3274,7 @@ def main():
         args.seed)
     if args.profile:
         profile_srk3("real_120km", cfg, grid, carry, args.profile)
-    del grid, carry, mesh64
+    del grid, carry
     cfg, grid, carry, counts["supercell_2km"] = timed(
         "supercell_2km", run_supercell_path, device, card)
     if args.profile:
@@ -2755,6 +3321,9 @@ def main():
         "shapes", check_kernels, device, (),
         (("ocean_channel_10km_4way", flat_nc, ((6, 6, 1), (6, 6, 20),
                                                (6, 6, 40))),)))
+    counts[OCEAN_GLOBAL] = timed(OCEAN_GLOBAL, run_ocean_global_path, device,
+                                 card, mesh64, args.profile)
+    del mesh64
 
     # phase 5d: the diagnostics on two paths' final states
     timed("diagnostics on supercell_2km_cam", check_diagnostics,

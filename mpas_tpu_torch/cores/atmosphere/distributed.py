@@ -132,49 +132,88 @@ def shard_atm_grid(grid: AtmGrid, part, halo_depth: int = ATM_HALO_DEPTH
     return ShardedAtm(grid=local, smesh=smesh)
 
 
+# the mesh entity of every field of AtmState, AtmDiag and AtmCarry, and
+# the value a dead cell keeps where there is one (exner 1, rho_zz 1 and
+# theta_m 300, so that 0**x and 0/0 do not occur there): shard_atm_state,
+# shard_atm_carry and carry_restart_fields all read this one table
+_FIELDS = {
+    # AtmState
+    "u": ("edge", None), "w": ("cell", None), "theta_m": ("cell", 300.0),
+    "rho_zz": ("cell", 1.0), "scalars": ("cell", None),
+    # AtmDiag
+    "ru": ("edge", None), "rw": ("cell", None), "rho_p": ("cell", None),
+    "rtheta_p": ("cell", None), "exner": ("cell", 1.0),
+    "pressure_p": ("cell", None), "ruAvg": ("edge", None),
+    "wwAvg": ("cell", None),
+    # the rest of AtmCarry
+    "v": ("edge", None), "sdiag_ke": ("cell", None),
+    "sdiag_div": ("cell", None), "sdiag_vort": ("vertex", None),
+    "sdiag_pv_edge": ("edge", None), "sdiag_rho_edge": ("edge", None),
+    "ur_cell": ("cell", None), "vr_cell": ("cell", None),
+    "rt_diabatic_tend": ("cell", None), "rainnc": ("cell", None),
+}
+
+
+def _scatter(sm, name, x):
+    """The stacked (P, ...) CPU tensor of one global field, by _FIELDS."""
+    kind, dead = _FIELDS[name]
+    x = scatter_field(sm, x, kind)
+    if dead is not None:
+        x = np.where(x == 0.0, dead, x)
+    return torch.from_numpy(x)
+
+
+def _scatter_all(sm, obj, skip=()):
+    """{name: stacked field} of a dataclass's fields, by _FIELDS."""
+    return {f.name: _scatter(sm, f.name, getattr(obj, f.name))
+            for f in dataclasses.fields(obj) if f.name not in skip}
+
+
 def shard_atm_state(satm: ShardedAtm, state: AtmState, diag: AtmDiag):
     """Stacked (P, ...) AtmState and AtmDiag of CPU tensors; dead cells
-    keep exner 1, rho_zz 1 and theta_m 300 so that 0**x and 0/0 do not
-    occur there."""
+    keep exner 1, rho_zz 1 and theta_m 300 (_FIELDS)."""
     sm = satm.smesh
-
-    def c(x, dead=None):
-        x = scatter_field(sm, x, "cell")
-        if dead is not None:
-            x = np.where(x == 0.0, dead, x)
-        return torch.from_numpy(x)
-
-    def e(x):
-        return torch.from_numpy(scatter_field(sm, x, "edge"))
-
-    st = AtmState(u=e(state.u), w=c(state.w), theta_m=c(state.theta_m, 300.0),
-                  rho_zz=c(state.rho_zz, 1.0), scalars=c(state.scalars))
-    dg = AtmDiag(ru=e(diag.ru), rw=c(diag.rw), rho_p=c(diag.rho_p),
-                 rtheta_p=c(diag.rtheta_p), exner=c(diag.exner, 1.0),
-                 pressure_p=c(diag.pressure_p), ruAvg=e(diag.ruAvg),
-                 wwAvg=c(diag.wwAvg))
-    return st, dg
+    return AtmState(**_scatter_all(sm, state)), AtmDiag(**_scatter_all(sm,
+                                                                      diag))
 
 
 def shard_atm_carry(satm: ShardedAtm, carry: AtmCarry) -> AtmCarry:
     """A global AtmCarry (CPU) -> the stacked (P, ...) carry, the state
     and diagnostics through shard_atm_state."""
-    sm = satm.smesh
-
-    def sc(x, kind):
-        return torch.from_numpy(scatter_field(sm, x, kind))
-
     st, dg = shard_atm_state(satm, carry.state, carry.diag)
-    return AtmCarry(
-        state=st, diag=dg, v=sc(carry.v, "edge"),
-        sdiag_ke=sc(carry.sdiag_ke, "cell"),
-        sdiag_div=sc(carry.sdiag_div, "cell"),
-        sdiag_vort=sc(carry.sdiag_vort, "vertex"),
-        sdiag_pv_edge=sc(carry.sdiag_pv_edge, "edge"),
-        sdiag_rho_edge=sc(carry.sdiag_rho_edge, "edge"),
-        ur_cell=sc(carry.ur_cell, "cell"), vr_cell=sc(carry.vr_cell, "cell"),
-        rt_diabatic_tend=sc(carry.rt_diabatic_tend, "cell"),
-        rainnc=sc(carry.rainnc, "cell"))
+    return AtmCarry(state=st, diag=dg, **_scatter_all(
+        satm.smesh, carry, skip=("state", "diag")))
+
+
+def carry_restart_fields(carry_l: AtmCarry, group: ShardGroup):
+    """({name: stacked (P, n, ...) numpy}, {name: kind}) of every field of
+    a placed carry, named state.u, diag.ru, v, ...: what
+    io.sharded.write_sharded writes."""
+    fields, kinds = {}, {}
+    for f in dataclasses.fields(carry_l):
+        v = getattr(carry_l, f.name)
+        items = ((f"{f.name}.{g.name}", g.name, getattr(v, g.name))
+                 for g in dataclasses.fields(v)) \
+            if dataclasses.is_dataclass(v) else ((f.name, f.name, v),)
+        for path, name, x in items:
+            fields[path] = group.stack(x)
+            kinds[path] = _FIELDS[name][0]
+    return fields, kinds
+
+
+def carry_from_restart_fields(fields) -> AtmCarry:
+    """The global AtmCarry (CPU tensors) of io.sharded.read_sharded's
+    fields: the inverse of carry_restart_fields over gathered fields."""
+    t = {k: torch.from_numpy(np.ascontiguousarray(v))
+         for k, v in fields.items()}
+
+    def sub(cls, prefix):
+        return cls(**{f.name: t[f"{prefix}.{f.name}"]
+                      for f in dataclasses.fields(cls)})
+
+    return AtmCarry(state=sub(AtmState, "state"), diag=sub(AtmDiag, "diag"),
+                    **{f.name: t[f.name] for f in dataclasses.fields(AtmCarry)
+                       if f.name not in ("state", "diag")})
 
 
 def make_run_steps_atm(satm: ShardedAtm, cfg: AtmConfig, group: ShardGroup):

@@ -257,6 +257,15 @@ def pmax_owned(local_vals, owned_mask, group: ShardGroup):
     return s
 
 
+def pmin_owned(local_vals, owned_mask, group: ShardGroup):
+    """Global min of a per-entity local field over owned entities."""
+    m = _owned(owned_mask, local_vals.dim())
+    s = torch.where(m > 0, local_vals, torch.inf).min()
+    if not group.loopback:
+        dist.all_reduce(s, op=dist.ReduceOp.MIN)
+    return s
+
+
 # ---------------------------------------------------------------------------
 # host-side scatter/gather between global and stacked-local fields
 # ---------------------------------------------------------------------------
