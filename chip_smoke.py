@@ -69,7 +69,18 @@ seconds):
    DMS, ecosys_step and carbon_step on 24 columns at 1e-11 x max; a
    ForcingGroup over a 3-record file written here (constant, linear,
    cyclic) equal to the CPU's, and build_state_pytree on the card from a
-   Registry.xml written here;
+   Registry.xml written here; the two sea-ice paths on the 100-cell box
+   (box_hex_mesh(12, 12, 10 km)): 3 steps of 600 s with 5 elastic
+   subcycles of each, and 1 step each of seaice_box_10km under the PWL
+   basis and of seaice_box_10km_default with the revised EVP (3,600 s, 20
+   subcycles), the dynamics fields and each tracer's content (tracer x
+   parent) held at 1e-11 x max; 3 steps of each at the paths' 3,600 s
+   with 20 subcycles printed, not held (the EVP subcycle amplifies a
+   rounding difference at every iteration: tests/test_torch_seaice_slice
+   .py); build_variational_coeffs on this host for the 642-cell sphere
+   against the reference's loop (tests/golden/
+   seaice_variational_icos8.npz) at 1e-12 x max, bit for bit or not
+   printed;
    4b. small float64 sharded runs on the card, all shards in one process
    (loopback), held to the same runs unsharded on the card at 1e-11 x
    max: JW (642 cells, 10 levels, 3 steps) on 2 and 4 shards, the ocean
@@ -142,6 +153,22 @@ seconds):
      dynamics, BGC, analysis and particles, each member's device ms; then
      the members and one particle step in f64 on the card and the CPU at
      1e-11 x max;
+   - seaice_box_10km: the sea-ice box (mpas_tpu_torch.tools.seaice_box)
+     on box_hex_mesh(202, 202, 10 km), 40,000 cells, with MPAS-Seaice's
+     E3SM options: variational EVP (Wachspress), incremental remapping,
+     mushy thermodynamics with the coupled brine dynamics, delta-
+     Eddington, level-ice ponds, the linear ITD, ice age; 5 categories, 7
+     ice and 1 snow layer, dt 3,600 s, 120 elastic subcycles;
+   - seaice_box_10km_default: the same box under SeaiceConfig() (weak
+     EVP, upwind, zero-layer thermodynamics, the rebin ITD). Each prints
+     its setup seconds (mesh, make_grid with the variational build,
+     init), ms/step min / median / max, peak memory, and from one
+     profiled step its kernels, device busy ms and the shares of
+     velocity, advection and column; gates: finite fields, total area a
+     cell in [0, 1 + 1e-5], volumes >= 0, max |u| < 1 m/s, no K1 or K2
+     launch, on seaice_box_10km enthalpy <= 0 and salinity in [0, 40]
+     psu, and one more step without column physics under each
+     advection scheme conserving the ice volume to 1e-5;
    5b. jw_120km_4way: jw_120km sharded 4 ways by sfc_partition (halo
      depth 4), float32, loopback on the card from jw_120km's start: the
      layout's host seconds, flat sizes and halo volume per depth, 12 K1 +
@@ -184,12 +211,12 @@ seconds):
      bound (bit for bit or not is printed).
 
 The second-to-last line is a JSON object with each kernel's numbers at
-its jw_120km float32 shape (launches summed over the thirteen paths and
+its jw_120km float32 shape (launches summed over the fifteen paths and
 the command line's six runs), the last one {"ok": true, "device":
 {...}}. Without CUDA it fails before any result is printed.
 
 --profile DIR adds torch.profiler breakdowns of 3 steps of each of the
-thirteen paths.
+fifteen paths.
 """
 
 from __future__ import annotations
@@ -2378,6 +2405,205 @@ def check_ocean_global_f64(device, grid, cfg, state, forcing):
 
 # --- sharded runs (mpas_tpu_torch.parallel, the three distributed.py) ---
 
+# the sea-ice paths (mpas_tpu_torch/tools/seaice_box.py); phase 4 holds
+# both on the 100-cell box card vs CPU at SEAICE_DT with SEAICE_SUBCYCLES
+# elastic subcycles, each tracer as its content (seaice_box.held_fields):
+# the EVP subcycle amplifies a rounding difference at every iteration,
+# so at the paths' 3,600 s with 20 subcycles the two depart far beyond
+# PHYS_RTOL (printed), as the port and the reference do
+# (tests/test_torch_seaice_slice.py)
+SEAICE_DT, SEAICE_SUBCYCLES = 600.0, 5
+SEAICE_PARTS = ("solve_velocities", "advect_upwind",
+                "advect_incremental_remap", "column_physics_step")
+SEAICE_GOLDEN = GOLDEN.with_name("seaice_variational_icos8.npz")
+
+
+def check_small_seaice(device):
+    """Phase 4: both sea-ice paths on box_hex_mesh(12, 12, 10 km) (100
+    cells) in float64 on the card vs the CPU: 3 steps of SEAICE_DT with
+    SEAICE_SUBCYCLES subcycles each, then the PWL variational basis and
+    (on the default path) the revised EVP, 1 step each, held at
+    PHYS_RTOL x max; the paths' own 3,600 s with 20 subcycles for 3 steps
+    printed, not held."""
+    from mpas_tpu_torch.cores.seaice.core import run_steps
+    from mpas_tpu_torch.cores.seaice.state import make_grid
+    from mpas_tpu_torch.mesh.planar import box_hex_mesh
+    from mpas_tpu_torch.tools import seaice_box as sb
+    mesh = box_hex_mesh(12, 12, 10000.0)
+    f64 = torch.float64
+    slice_kw = dict(config_dt=SEAICE_DT,
+                    config_elastic_subcycle_number=SEAICE_SUBCYCLES)
+    path_kw = dict(config_elastic_subcycle_number=20)
+    # (path, steps, basis, config, held)
+    cases = (("seaice_box_10km", 3, None, slice_kw, True),
+             ("seaice_box_10km_default", 3, None, slice_kw, True),
+             ("seaice_box_10km", 1, "pwl", slice_kw, True),
+             ("seaice_box_10km_default", 1, None,
+              dict(config_revised_evp=True, **path_kw), True),
+             ("seaice_box_10km", 3, None, path_kw, False),
+             ("seaice_box_10km_default", 3, None, path_kw, False))
+    for name, steps, basis, kw, held in cases:
+        cfg = sb.config(name, **kw)
+        label = (f"{name}{' pwl' if basis else ''}"
+                 f"{' revised EVP' if cfg.config_revised_evp else ''}, "
+                 f"{steps} x {cfg.config_dt:g} s, "
+                 f"{cfg.config_elastic_subcycle_number} subcycles")
+        fields = {}
+        for where, dev in (("cpu", torch.device("cpu")), ("cuda", device)):
+            grid, state, forcing, _ = sb.setup(name, mesh, cfg, f64, dev)
+            if basis is not None:
+                grid = make_grid(mesh, variational=basis).to(dev, f64)
+            fields[where] = {k: v.cpu().numpy() for k, v in sb.held_fields(
+                run_steps(grid, cfg, state, forcing, steps)).items()}
+        require(float(np.abs(fields["cpu"]["uVelocity"]).max()) > 1e-4,
+                f"the small sea-ice run {label} did not move")
+        print(f"small f64 {label}:" + ("" if held else " (not held: the "
+                                       "EVP subcycle amplifies rounding)"))
+        if held:
+            compare_scaled(label, fields, PHYS_RTOL)
+        else:
+            worst = max(float(np.abs(fields["cuda"][k] - v).max())
+                        / max(float(np.abs(v).max()), 1e-300)
+                        for k, v in fields["cpu"].items())
+            print(f"  worst cuda vs cpu departure {worst:.3e} x max")
+
+
+def check_seaice_variational_build():
+    """Phase 4: build_variational_coeffs on this machine's host for the
+    642-cell sphere (icosahedral_mesh(8, 1): pentagons and hexagons)
+    against the reference's per-cell loop on the same mesh
+    (tests/golden/seaice_variational_icos8.npz, which
+    tests/test_torch_seaice.py holds to the JAX package's build), at
+    1e-12 x max; bit for bit or not is printed."""
+    from mpas_tpu_torch.cores.seaice.variational import (
+        build_variational_coeffs)
+    from mpas_tpu_torch.mesh.sphere import icosahedral_mesh
+    golden = np.load(SEAICE_GOLDEN)
+    t0 = time.perf_counter()
+    got = build_variational_coeffs(icosahedral_mesh(8, 1))
+    seconds = time.perf_counter() - t0
+    exact = True
+    for f in dataclasses.fields(got):
+        a, b = getattr(got, f.name).numpy(), golden[f.name]
+        require(a.shape == b.shape, f.name)
+        err = float(np.abs(a - b).max())
+        exact &= bool(np.array_equal(a, b))
+        require(err <= 1e-12 * float(np.abs(b).max()),
+                f"variational build {f.name}: {err:.3e}")
+    print(f"variational build on the 642-cell sphere (mesh + build "
+          f"{seconds:.2f} s): bit for bit with the reference's loop: "
+          f"{exact}")
+
+
+def run_seaice_path(name, device, card, mesh, mesh_s, profile=None):
+    """Phase 5, a sea-ice path (mpas_tpu_torch.tools.seaice_box) in
+    float32 on the card on phase 5's 40,000-cell box: setup (the mesh's,
+    make_grid's with the variational build, and the init's seconds), one
+    warm step, MAIN_STEPS timed steps each synchronised (min / median /
+    max ms), peak memory; the launch counters are zeroed before the warm
+    step. Gates: finite fields, total area a cell in [0, 1 + 1e-5],
+    volumes >= 0, max |u| < 1 m/s; on seaice_box_10km enthalpy <= 0 and
+    salinity in [0, 40] psu; then one profiled step (kernels, device
+    busy, the shares of velocity, advection and column), and one more
+    step without column physics under each advection scheme, each
+    conserving the ice volume to 1e-5."""
+    from mpas_tpu_torch import kernels
+    from mpas_tpu_torch.cores.seaice import core as seaice_core
+    from mpas_tpu_torch.cores.seaice.thermo_vertical import temperature_snow
+    from mpas_tpu_torch.tools import seaice_box as sb
+    cfg = sb.config(name)
+    grid, state, forcing, secs = sb.setup(name, mesh, cfg, torch.float32,
+                                          device)
+    nc, ncat = state.iceAreaCategory.shape
+    print(f"{name} setup: {nc} cells x {ncat} categories, "
+          f"{cfg.config_thermo_type} thermodynamics, "
+          f"{cfg.config_stress_divergence_scheme} EVP, "
+          f"{cfg.config_advection_type}, dt {cfg.config_dt:g} s, "
+          f"{cfg.config_elastic_subcycle_number} subcycles; host mesh "
+          f"{mesh_s:.2f} s, make_grid (variational build included) "
+          f"{secs['grid']:.2f} s, init {secs['init']:.2f} s")
+    require(nc == sb.MESH[0] * sb.MESH[1] - 2 * (sb.MESH[0] + sb.MESH[1])
+            + 4, f"{name} built the wrong size")
+    dt = float(cfg.config_dt)
+
+    def step(s, c=cfg):
+        return seaice_core.seaice_timestep(grid, c, s, forcing, dt)[0]
+
+    kernels.reset_launch_counts()
+    state = step(state)                                     # warm step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    times = []
+    for _ in range(MAIN_STEPS):
+        t0 = time.perf_counter()
+        state = step(state)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    counts = dict(kernels.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+
+    fields = {f.name: getattr(state, f.name) for f in dataclasses.fields(
+        state) if getattr(state, f.name) is not None}
+    for k, v in fields.items():
+        require(bool(torch.isfinite(v).all()), f"{name}: {k} not finite")
+    asum = state.iceAreaCategory.sum(-1)
+    a_lo, a_hi = float(asum.min()), float(asum.max())
+    v_min = min(float(state.iceVolumeCategory.min()),
+                float(state.snowVolumeCategory.min()))
+    u_max = float(torch.hypot(state.uVelocity, state.vVelocity).max())
+    ms = sorted(times)
+    extra = ""
+    if state.iceEnthalpy is not None:
+        q_max = max(float(state.iceEnthalpy.max()),
+                    float(state.snowEnthalpy.max()))
+        s_lo = float(state.iceSalinity.min())
+        s_hi = float(state.iceSalinity.max())
+        t_snow = float(temperature_snow(cfg, state.snowEnthalpy).min())
+        extra = (f", max enthalpy {q_max:.4e} J/m3, salinity [{s_lo:.4f}, "
+                 f"{s_hi:.4f}] psu, coldest snow {t_snow:.1f} C (not held: "
+                 f"the remap's sliver enthalpy, ROADMAP §3)")
+    print(f"{name} float32 on {card}: {MAIN_STEPS} steps, ms/step min / "
+          f"median / max {ms[0]:.2f} / {ms[len(ms) // 2]:.2f} / {ms[-1]:.2f}"
+          f", {nc * 1e3 / ms[len(ms) // 2]:.1f} cell updates/s; peak "
+          f"device memory {peak_gb:.3f} GB; area a cell [{a_lo:.6f}, "
+          f"{a_hi:.8f}], min volume {v_min:.3e} m, max |u| {u_max:.4f} "
+          f"m/s{extra}; launches {counts} (the path reaches neither "
+          f"kernel)")
+    require(0.0 <= a_lo and a_hi <= 1.0 + 1e-5, f"{name}: area {a_hi}")
+    require(v_min >= 0.0, f"{name}: a negative volume {v_min}")
+    require(u_max < 1.0, f"{name}: max |u| {u_max}")
+    require(counts == {k: 0 for k in counts}, f"{name}: {counts}")
+    if state.iceEnthalpy is not None:
+        require(q_max <= 0.0, f"{name}: enthalpy above 0: {q_max}")
+        require(0.0 <= s_lo and s_hi <= 40.0, f"{name}: salinity "
+                f"[{s_lo}, {s_hi}]")
+
+    out, n_kern, busy, part_ms = kernel_census(lambda: step(state),
+                                               seaice_core, SEAICE_PARTS)
+    med = ms[len(ms) // 2]
+    print(f"{name} one profiled step on {card}: {n_kern} kernels, device "
+          f"busy {busy:.3f} ms ({100.0 * (1.0 - busy / med):.1f}% idle "
+          f"against the median {med:.2f} ms/step); "
+          + "; ".join(f"{k} {part_ms[k]:.3f} ms "
+                      f"({100.0 * part_ms[k] / max(busy, 1e-9):.1f}%)"
+                      for k in SEAICE_PARTS if k in part_ms))
+    if profile:
+        box = [state]
+
+        def profiled():
+            box[0] = step(box[0])
+        profile_steps(name, profiled, profile, seaice_core, SEAICE_PARTS)
+    v0 = sb.total_volume(grid, state)
+    for adv in ("upwind", "incremental_remap"):
+        c = dataclasses.replace(cfg, config_use_column_physics=False,
+                                config_advection_type=adv)
+        dv = (sb.total_volume(grid, step(state, c)) - v0) / v0
+        print(f"{name} one step without column physics, {adv}: ice volume "
+              f"change {dv:.3e} (bound 1e-5)")
+        require(abs(dv) <= 1e-5, f"{name}: volume not conserved ({adv})")
+    return counts
+
+
 N_SHARDS = 4
 SHARD_REL_F64 = 1e-11   # sharded against unsharded, float64
 # the reference's f32 allowance, on its measure max |a - b| / (1 + |b|)
@@ -3165,8 +3391,9 @@ def main():
                              "supercell_2km_mesoref, supercell_2km_convperm, "
                              "supercell_2km_kf, supercell_2km_cam, "
                              "jw_var60_15, "
-                             "ocean_channel_10km, the two 4-way paths and "
-                             "ocean_global_120km; "
+                             "ocean_channel_10km, the two 4-way paths, "
+                             "ocean_global_120km, seaice_box_10km and "
+                             "seaice_box_10km_default; "
                              "the kernel tables go to "
                              "DIR/profile_<path>.txt")
     parser.add_argument("--seed", type=int, default=0,
@@ -3219,6 +3446,9 @@ def main():
     with tempfile.TemporaryDirectory(prefix="framework_io") as tmp:
         timed("forcing group", check_forcing_group, device, tmp)
         timed("registry", check_registry, device, tmp)
+    timed("small f64 sea ice", check_small_seaice, device)
+    timed("sea-ice variational build on the host",
+          check_seaice_variational_build)
     timed("small f64 real-data init + 3 steps", check_small_real, device,
           mesh8)
     timed("f64 regional zones, LBC and IAU", check_regional_iau, device)
@@ -3324,6 +3554,16 @@ def main():
     counts[OCEAN_GLOBAL] = timed(OCEAN_GLOBAL, run_ocean_global_path, device,
                                  card, mesh64, args.profile)
     del mesh64
+    # one 40,000-cell box for the two sea-ice paths
+    from mpas_tpu_torch.mesh.planar import box_hex_mesh
+    from mpas_tpu_torch.tools import seaice_box
+    t0 = time.perf_counter()
+    box = box_hex_mesh(*seaice_box.MESH)
+    box_s = time.perf_counter() - t0
+    for name in seaice_box.PATHS:
+        counts[name] = timed(name, run_seaice_path, name, device, card, box,
+                             box_s, args.profile)
+    del box
 
     # phase 5d: the diagnostics on two paths' final states
     timed("diagnostics on supercell_2km_cam", check_diagnostics,

@@ -2,7 +2,8 @@
 
 The input is the reference's `AtmGrid`/`AtmState`/`AtmDiag`/`AtmCarry`,
 `PhysicsState`, `UrbanState`, `SWState`,
-`OcnGrid`/`OcnState`/`OcnSurfaceForcing`, `ShardedMesh`, `BdyMasks`,
+`OcnGrid`/`OcnState`/`OcnSurfaceForcing`,
+`SeaiceGrid`/`SeaiceState`/`SeaiceForcing`, `ShardedMesh`, `BdyMasks`,
 `LbcRecord` or `IAUIncrements` flattened to
 nested dicts of numpy arrays plus their static ints and
 floats (nCells, nz, cf1..3, adv_beta, sphere_radius, ...): the same field
@@ -34,6 +35,9 @@ from mpas_tpu_torch.cores.atmosphere.time_integration import AtmCarry
 from mpas_tpu_torch.cores.ocean.forcing import OcnSurfaceForcing
 from mpas_tpu_torch.cores.init_atmosphere.surface_lbc import LbcRecord
 from mpas_tpu_torch.cores.ocean.state import OcnGrid, OcnState
+from mpas_tpu_torch.cores.seaice.state import (SeaiceForcing, SeaiceGrid,
+                                               SeaiceState)
+from mpas_tpu_torch.cores.seaice.variational import VariationalCoeffs
 from mpas_tpu_torch.cores.sw.state import SWState
 from mpas_tpu_torch.mesh.mesh import Mesh
 from mpas_tpu_torch.parallel.layout import (HaloExchange, NeighborExchange,
@@ -124,6 +128,23 @@ def ocn_state_from_arrays(d) -> OcnState:
 
 def ocn_forcing_from_arrays(d) -> OcnSurfaceForcing:
     return _build(OcnSurfaceForcing, d)
+
+
+def seaice_grid_from_arrays(d) -> SeaiceGrid:
+    """A reference SeaiceGrid, with its VariationalCoeffs where it has
+    them."""
+    var = d["variational"]
+    return _build(SeaiceGrid, d, mesh=mesh_from_arrays(d["mesh"]),
+                  variational=None if var is None
+                  else _build(VariationalCoeffs, var))
+
+
+def seaice_state_from_arrays(d) -> SeaiceState:
+    return _build(SeaiceState, d)
+
+
+def seaice_forcing_from_arrays(d) -> SeaiceForcing:
+    return _build(SeaiceForcing, d)
 
 
 def sharded_mesh_from_arrays(d) -> ShardedMesh:

@@ -1,4 +1,5 @@
-"""Count the torch operations of the physics on the supercell.
+"""Count the torch operations of the physics on the supercell, and of a
+sea-ice step.
 
     python -m mpas_tpu_torch.tools.op_count [--n 12] [--nz 40] [--device cpu]
 
@@ -13,7 +14,10 @@ counted call launches about one kernel on a card, so a count taken on the
 CPU predicts a card's kernels a step before a card run; it is a count,
 not a device number. It does not depend on n. For cam_lw and cam_sw it
 also reckons the bytes a call moves per cell (count_bytes), which scales
-with the cells. The device defaults to cuda:0.
+with the cells. For the two sea-ice paths of tools/seaice_box.py on the
+100-cell box (float64): one seaice_timestep, its velocity solve (and the
+calls one elastic subcycle adds), its transport and its column physics.
+The device defaults to cuda:0.
 """
 
 from __future__ import annotations
@@ -180,6 +184,39 @@ def run(n=12, nz=40, device=None):
     return out
 
 
+def seaice_run(device=None):
+    """{label: op count} of a step of each sea-ice path and its parts, on
+    box_hex_mesh(12, 12, 10 km)."""
+    from mpas_tpu_torch.cores.seaice import core
+    from mpas_tpu_torch.cores.seaice.column import column_physics_step
+    from mpas_tpu_torch.cores.seaice.velocity import solve_velocities
+    from mpas_tpu_torch.mesh.planar import box_hex_mesh
+    from mpas_tpu_torch.tools import seaice_box
+    device = resolve_device(device)
+    mesh = box_hex_mesh(12, 12, 10000.0)
+    out = {}
+    for name in seaice_box.PATHS:
+        cfg = seaice_box.config(name)
+        grid, state, forcing, _ = seaice_box.setup(name, mesh, cfg,
+                                                   torch.float64, device)
+        dt = float(cfg.config_dt)
+        advect = core.advect_upwind if cfg.config_advection_type == "upwind" \
+            else core.advect_incremental_remap
+        out[f"{name} seaice_timestep"] = count_ops(
+            lambda: core.seaice_timestep(grid, cfg, state, forcing, dt))
+        out[f"{name} solve_velocities"] = count_ops(
+            lambda: solve_velocities(grid, cfg, state, forcing, dt))
+        one, two = (count_ops(lambda: solve_velocities(
+            grid, dataclasses.replace(cfg, config_elastic_subcycle_number=k),
+            state, forcing, dt)) for k in (1, 2))
+        out[f"{name} one elastic subcycle"] = two - one
+        out[f"{name} transport"] = count_ops(
+            lambda: advect(grid, cfg, state, dt))
+        out[f"{name} column_physics_step"] = count_ops(
+            lambda: column_physics_step(cfg, state, forcing, dt))
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--n", type=int, default=12)
@@ -191,6 +228,8 @@ def main():
         what = f"{k:.4f}" if "MB" in label else f"{k} aten calls"
         print(f"{label}: {what} ({args.n}x{args.n} cells, {args.nz} "
               f"levels, {device})")
+    for label, k in seaice_run(device).items():
+        print(f"{label}: {k} aten calls (100-cell box, {device})")
 
 
 if __name__ == "__main__":

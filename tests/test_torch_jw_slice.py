@@ -161,6 +161,28 @@ import mpas_tpu_torch.parallel.runner
 import mpas_tpu_torch.cores.atmosphere.distributed
 import mpas_tpu_torch.cores.ocean.distributed
 import mpas_tpu_torch.cores.sw.distributed
+import mpas_tpu_torch.ops.remap
+import mpas_tpu_torch.cores.seaice.config
+import mpas_tpu_torch.cores.seaice.state
+import mpas_tpu_torch.cores.seaice.variational
+import mpas_tpu_torch.cores.seaice.velocity
+import mpas_tpu_torch.cores.seaice.advection
+import mpas_tpu_torch.cores.seaice.remap
+import mpas_tpu_torch.cores.seaice.thermo_vertical
+import mpas_tpu_torch.cores.seaice.shortwave_dedd
+import mpas_tpu_torch.cores.seaice.mushy
+import mpas_tpu_torch.cores.seaice.zsalinity
+import mpas_tpu_torch.cores.seaice.ponds
+import mpas_tpu_torch.cores.seaice.ridging
+import mpas_tpu_torch.cores.seaice.itd
+import mpas_tpu_torch.cores.seaice.tracers
+import mpas_tpu_torch.cores.seaice.snow
+import mpas_tpu_torch.cores.seaice.bgc
+import mpas_tpu_torch.cores.seaice.orbital
+import mpas_tpu_torch.cores.seaice.column
+import mpas_tpu_torch.cores.seaice.init_square
+import mpas_tpu_torch.cores.seaice.core
+import mpas_tpu_torch.tools.seaice_box
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCK]
 sys.exit(1 if bad else 0)
 """
