@@ -80,12 +80,31 @@ seconds):
    .py); build_variational_coeffs on this host for the 642-cell sphere
    against the reference's loop (tests/golden/
    seaice_variational_icos8.npz) at 1e-12 x max, bit for bit or not
-   printed;
+   printed; the 16 sea-ice analysis members on the 100-cell box's start
+   and its state after 3 steps of 600 s (the deltas between them), and
+   SeaiceForcingManager over classic files written here (linear and
+   cyclic, 4 times), on the card equal to the CPU; the two land-ice
+   paths of tools/landice_dome.py on box_hex_mesh(20, 20, 3 km) with a
+   dome of h0 500 m, r0 25 km: 3 steps of landice_dome_4km, 2 of
+   landice_dome_4km_fo at 6 Picard x 60 CG (its velocity and the
+   statistics' maximum speeds at 1e-6 x max: its CG does not converge
+   and amplifies rounding; everything else at 1e-11), one sgh_step_full
+   on each device from the CPU's FO state, global_stats and
+   regional_stats; the external velocity solver built on this host from
+   tools/velocity_solver/interface_velocity_solver.cpp, its solve_fo and
+   solve_fo_stokes on the 14 x 14 box against the committed CPU
+   build's output (tests/golden/landice_external_box14.npz) at 1e-12 x
+   max, bit for bit or not printed; spline, tensor and rbf (rbf's
+   reconstructed values at 1e-10) at the tests' sizes, card vs CPU;
    4b. small float64 sharded runs on the card, all shards in one process
    (loopback), held to the same runs unsharded on the card at 1e-11 x
    max: JW (642 cells, 10 levels, 3 steps) on 2 and 4 shards, the ocean
    channel (192 cells, 3 split steps) and shallow-water TC5 (642 cells, 5
-   steps) on 4;
+   steps) on 4; make_run_steps_li (SIA, IR, and FO at 3 Picard x 30 CG,
+   whose velocity-driven fields are held at 1e-6 x max: the sharded CG
+   dots sum in another order) on box_hex_mesh(20, 20, 4 km) and
+   make_run_steps_seaice (both sea-ice paths, 600-s steps with 5
+   subcycles) on the 100-cell box, 4 shards each;
    4c. the process-group transport on NCCL, 2 ranks on 2 cards, the small
    JW held to loopback at 1e-11, where the machine has two cards;
 5. the full-size paths in float32 (setup, then timed steps), each with
@@ -164,11 +183,42 @@ seconds):
      its setup seconds (mesh, make_grid with the variational build,
      init), ms/step min / median / max, peak memory, and from one
      profiled step its kernels, device busy ms and the shares of
-     velocity, advection and column; gates: finite fields, total area a
-     cell in [0, 1 + 1e-5], volumes >= 0, max |u| < 1 m/s, no K1 or K2
-     launch, on seaice_box_10km enthalpy <= 0 and salinity in [0, 40]
-     psu, and one more step without column physics under each
-     advection scheme conserving the ice volume to 1e-5;
+     velocity, advection and column (seaice_box_10km also each of the 16
+     analysis members' device ms on its final state); gates: finite
+     fields, total area a cell in [0, 1 + 1e-5], volumes >= 0, max |u| <
+     1 m/s, no K1 or K2 launch, on seaice_box_10km enthalpy <= 0 and
+     salinity in [0, 40] psu, and one more step without column physics
+     under each advection scheme conserving the ice volume to 1e-5;
+   - seaice_box_10km_4way: seaice_box_10km sharded 4 ways (halo depth 3)
+     in loopback on the card, float32, 1 + 2 x 3 steps in turns with the
+     unsharded path (A, B, B, A), the elastic subcycle's 240 vertex
+     exchanges a step; the departure of every field from the unsharded
+     run (bit for bit or not) printed, the sea-ice gates held, no K1 or
+     K2 launch;
+   - jw_120km in three numberings of its mesh (the generator's, a
+     seeded random relabelling, sfc_reorder_mesh of that), each from
+     init_jw on its own mesh, 1 + 2 x 3 steps in turns (A, B, C, A, B,
+     C): ms/step, one profiled step's device busy and gathers (ms and
+     count), each final state un-permuted within 2e-4 of the
+     generator's on max |a - b| / (1 + |b|), 12 K1 + 15 K2 a step;
+   - landice_dome_4km and landice_dome_4km_fo (mpas_tpu_torch.tools.
+     landice_dome) on box_hex_mesh(302, 348, 4 km), 103,800 cells, 10
+     levels, float64, a Halfar dome of h0 3,000 m and r0 550 km, dt
+     0.05 yr: LiConfig() (SIA, 10 timed steps) and MALI's usual options
+     (FO Stokes 10 Picard x 120 CG, enthalpy with PB1982, incremental
+     remapping, eigencalving, sgh_step_full with channels; 3 timed
+     steps). Each prints setup seconds (mesh, grid with build_fo_geom,
+     init), ms/step min / median / max, peak memory, global_stats, and
+     from one profiled step its kernels, device busy and the shares of
+     velocity, advection, thermal, calving, hydrology and stats; the FO
+     path also the CG residual after each Picard pass of its last step.
+     Gates: finite fields, thickness >= 0, temperature <= 273.15 K,
+     surface speed > 0, the thickest cell thins, no K1 or K2 launch; on
+     landice_dome_4km the volume over the 11 steps within 1e-10 and a
+     basal speed of 0; on landice_dome_4km_fo a calving flux of 0, the
+     basal speed below the surface's (the reference copies the lowest
+     layer's velocity to the bed interface), water pressure in [0,
+     overburden] and effective pressure >= 0;
    5b. jw_120km_4way: jw_120km sharded 4 ways by sfc_partition (halo
      depth 4), float32, loopback on the card from jw_120km's start: the
      layout's host seconds, flat sizes and halo volume per depth, 12 K1 +
@@ -211,12 +261,14 @@ seconds):
      bound (bit for bit or not is printed).
 
 The second-to-last line is a JSON object with each kernel's numbers at
-its jw_120km float32 shape (launches summed over the fifteen paths and
-the command line's six runs), the last one {"ok": true, "device":
-{...}}. Without CUDA it fails before any result is printed.
+its jw_120km float32 shape (launches summed over the paths and the
+command line's six runs; the sea-ice and land-ice paths launch
+neither), the last one {"ok": true, "device": {...}}. Without CUDA it
+fails before any result is printed.
 
 --profile DIR adds torch.profiler breakdowns of 3 steps of each of the
-fifteen paths.
+fifteen paths before the sea-ice 4-way path, and of one step of each
+land-ice path.
 """
 
 from __future__ import annotations
@@ -2187,10 +2239,11 @@ OCEAN_GLOBAL_NZ = 60               # E3SM's global MPAS-Ocean meshes
 OCEAN_GLOBAL_PARTS = ("dynamics", "bgc", "analysis", "particles")
 
 
-def member_census(driver, grid, cfg, state, forcing):
+def member_census(driver, grid, cfg, state, **kw):
     """(host ms of driver.compute_all, {member: device ms}) of one call
-    under torch.profiler, each member's compute in a record_function
-    span (the driver's signature dispatch kept through functools.wraps)."""
+    (with `kw`: the ocean's forcing) under torch.profiler, each member's
+    compute in a record_function span (the driver's signature dispatch
+    kept through functools.wraps)."""
     import functools
 
     from torch.profiler import record_function
@@ -2207,7 +2260,7 @@ def member_census(driver, grid, cfg, state, forcing):
 
     def run():
         t0 = time.perf_counter()
-        driver.compute_all(grid, cfg, state, forcing=forcing)
+        driver.compute_all(grid, cfg, state, **kw)
         host.append(1e3 * (time.perf_counter() - t0))
     try:
         for n, fn in saved.items():
@@ -2346,7 +2399,8 @@ def run_ocean_global_path(device, card, mesh64, profile=None):
           + "; ".join(f"{k} {part_ms[k]:.3f} ms "
                       f"({100.0 * part_ms[k] / busy:.1f}%)"
                       for k in OCEAN_GLOBAL_PARTS))
-    host_ms, census = member_census(driver, grid, cfg, box["state"], forcing)
+    host_ms, census = member_census(driver, grid, cfg, box["state"],
+                                    forcing=forcing)
     print(f"{name} analysis, all 19 members once: driver host "
           f"{host_ms:.2f} ms, {census[1]} kernels, device {census[2]:.3f} "
           f"ms; " + ", ".join(f"{k} {v:.3f}" for k, v in
@@ -2504,9 +2558,10 @@ def run_seaice_path(name, device, card, mesh, mesh_s, profile=None):
     step. Gates: finite fields, total area a cell in [0, 1 + 1e-5],
     volumes >= 0, max |u| < 1 m/s; on seaice_box_10km enthalpy <= 0 and
     salinity in [0, 40] psu; then one profiled step (kernels, device
-    busy, the shares of velocity, advection and column), and one more
-    step without column physics under each advection scheme, each
-    conserving the ice volume to 1e-5."""
+    busy, the shares of velocity, advection and column), on
+    seaice_box_10km the 16 analysis members on its final state (each
+    member's device ms), and one more step without column physics under
+    each advection scheme, each conserving the ice volume to 1e-5."""
     from mpas_tpu_torch import kernels
     from mpas_tpu_torch.cores.seaice import core as seaice_core
     from mpas_tpu_torch.cores.seaice.thermo_vertical import temperature_snow
@@ -2593,6 +2648,19 @@ def run_seaice_path(name, device, card, mesh, mesh_s, profile=None):
         def profiled():
             box[0] = step(box[0])
         profile_steps(name, profiled, profile, seaice_core, SEAICE_PARTS)
+    if name == "seaice_box_10km":
+        from mpas_tpu_torch.cores.seaice import analysis
+        driver = analysis.SeaiceAnalysisDriver(
+            {k: 1.0 for k in analysis.available_members()})
+        driver.init(grid, cfg)
+        driver.compute_all(grid, cfg, state)         # first calls: warm
+        host_ms, census = member_census(driver, grid, cfg, state)
+        _out, n_kern, busy, member_ms = census
+        print(f"{name}: the 16 analysis members on its final state: "
+              f"{n_kern} kernels, device {busy:.3f} ms, host "
+              f"{host_ms:.2f} ms; by member (device ms): " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in sorted(
+                      member_ms.items(), key=lambda kv: -kv[1])))
     v0 = sb.total_volume(grid, state)
     for adv in ("upwind", "incremental_remap"):
         c = dataclasses.replace(cfg, config_use_column_physics=False,
@@ -2629,7 +2697,7 @@ def compare_sharded(label, got, ref, rel, mixed=False):
     or (mixed) at max |got - ref| / (1 + |ref|) <= rel, the reference's
     f32 measure."""
     for k, r in ref.items():
-        scale = float(np.abs(r).max())
+        scale = max(float(np.abs(r).max()), 1e-300)
         diff = np.abs(got[k] - r)
         err = float(diff.max())
         err_mixed = float((diff / (1.0 + np.abs(r))).max())
@@ -3375,6 +3443,736 @@ def run_cli_file_path(device, card, grid_path):
     return counts
 
 
+# --- land ice, the sharded sea ice, its forcing and analysis, the mesh
+# numberings and the operators (mpas_tpu_torch/tools/landice_dome.py,
+# cores/landice, cores/seaice/{distributed,forcing_adapter,analysis}.py,
+# mesh/reorder.py, ops/{rbf,spline,tensor}.py) ---
+
+# phase 4's small dome, the reference tests' (tests/test_landice_fo.py,
+# tests/test_torch_landice_slice.py): box_hex_mesh(20, 20, 3 km), h0 500 m,
+# r0 25 km
+LI_SMALL_MESH, LI_SMALL_DOME = (20, 20, 3000.0), (500.0, 25000.0)
+LI_FO_SMALL = dict(config_fo_picard_iters=6, config_fo_cg_iters=60)
+# the FO solve's velocity on the card against the CPU: its CG does not
+# converge on the dome and amplifies the rounding difference of two
+# summation orders (at 6 x 60 the two CPU packages depart 1.4e-9 x max
+# after 3 steps; tests/test_torch_landice.py
+# test_fo_solve_rounding_amplification); the ice geometry it moves is held
+# at PHYS_RTOL
+LI_FO_VELOCITY_RTOL = 1e-6
+LI_TIMED_STEPS = {"landice_dome_4km": 10, "landice_dome_4km_fo": 3}
+LI_VOLUME_RTOL = 1e-10             # tests/test_landice_core.py:54-59
+RBF_RTOL = 1e-10                   # tests/test_torch_mesh_ops.py
+SEAICE_4WAY_STEPS = 3
+NUMBERING_STEPS = 3                # steps a turn: the script keeps to its time
+EXTERNAL_GOLDEN = GOLDEN.with_name("landice_external_box14.npz")
+
+
+def li_fields(state):
+    """{name: numpy} of a land-ice (or hydrology) state's fields."""
+    return {f.name: getattr(state, f.name).cpu().numpy()
+            for f in dataclasses.fields(state)
+            if getattr(state, f.name) is not None}
+
+
+def check_small_landice(device):
+    """Phase 4: the two land-ice paths (tools/landice_dome.py) on the small
+    dome in float64 on the card vs the CPU: 3 fe_steps of
+    landice_dome_4km, 2 of landice_dome_4km_fo at 6 Picard x 60 CG (its
+    velocity and the statistics' maximum speeds at LI_FO_VELOCITY_RTOL,
+    everything else at PHYS_RTOL), one sgh_step_full on each device from
+    the CPU's FO state, and global_stats and regional_stats (two regions)
+    of each."""
+    from mpas_tpu_torch.cores.landice.core import fe_step
+    from mpas_tpu_torch.cores.landice.hydro import sgh_step_full
+    from mpas_tpu_torch.cores.landice.statistics import (global_stats,
+                                                         regional_stats)
+    from mpas_tpu_torch.mesh.planar import box_hex_mesh
+    from mpas_tpu_torch.tools import landice_dome as ld
+    mesh = box_hex_mesh(*LI_SMALL_MESH)
+    x = mesh.xCell.numpy()
+    regions = np.stack([x < x.mean(), x >= x.mean()], 1)
+    f64 = torch.float64
+    for name, steps, kw in (("landice_dome_4km", 3, {}),
+                            ("landice_dome_4km_fo", 2, LI_FO_SMALL)):
+        cfg = ld.config(name, **kw)
+        fields, runs = {}, {}
+        for where, dev in (("cpu", torch.device("cpu")), ("cuda", device)):
+            grid, state, hydro, _ = ld.setup(name, mesh, cfg, LI_SMALL_DOME,
+                                             f64, dev)
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                state = fe_step(grid, cfg, state, float(cfg.config_dt))
+            out = li_fields(state)
+            out.update({f"global.{k}": v.cpu().numpy() for k, v in
+                        global_stats(grid, cfg, state).items()})
+            out.update({f"regional.{k}": v.cpu().numpy() for k, v in
+                        regional_stats(grid, cfg, state, regions).items()})
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            fields[where], runs[where] = out, (grid, state, hydro)
+            print(f"small f64 {name} on {where}: {steps} steps in "
+                  f"{time.perf_counter() - t0:.2f} s")
+        if runs["cpu"][2] is not None:
+            # one hydrology step on each device from the CPU run's ice:
+            # its channels amplify the ice's rounding difference
+            # (ROADMAP §3), so both steps take the same input
+            ice = runs["cpu"][1]
+            for where, (grid, _state, hydro) in runs.items():
+                dev = grid.bedTopography.device
+                h = ice.thickness.to(dev)
+                hydro = sgh_step_full(grid, cfg, hydro, h,
+                                      ice.basalMeltRate.to(dev),
+                                      ld.sliding_speed(h),
+                                      float(cfg.config_dt),
+                                      n_sub=ld.HYDRO_SUBSTEPS)
+                fields[where].update({f"hydro.{k}": v for k, v in li_fields(
+                    hydro).items()})
+        label = f"{name} {steps} steps" + (
+            f" at {kw['config_fo_picard_iters']} Picard x "
+            f"{kw['config_fo_cg_iters']} CG" if kw else "")
+        print(f"small f64 {label}:")
+        loose = {"normalVelocity", "global.maxSurfaceSpeed",
+                 "regional.regionalMaxSurfaceSpeed"} if kw else set()
+        for part, rel in ((set(fields["cpu"]) - loose, PHYS_RTOL),
+                          (loose, LI_FO_VELOCITY_RTOL)):
+            if part:
+                compare_scaled(label, {w: {k: v[k] for k in sorted(part)}
+                                       for w, v in fields.items()}, rel)
+        require(float(np.abs(fields["cpu"]["normalVelocity"]).max()) > 0.0,
+                f"the small {name} run did not move")
+
+
+def check_landice_external():
+    """Phase 4: the external velocity solver built here on the host from
+    tools/velocity_solver/interface_velocity_solver.cpp, its solve_fo and
+    solve_fo_stokes on the 14 x 14 box's dome against the committed CPU
+    build's output (tests/golden/landice_external_box14.npz) at 1e-12 x
+    max; bit for bit or not is printed."""
+    from mpas_tpu_torch.cores.landice import external
+    from mpas_tpu_torch.cores.landice.config import LiConfig
+    from mpas_tpu_torch.cores.landice.init_dome import init_halfar
+    from mpas_tpu_torch.mesh.planar import box_hex_mesh
+    t0 = time.perf_counter()
+    path = external.build_library()
+    build_s = time.perf_counter() - t0
+    mesh = box_hex_mesh(14, 14, 4000.0)
+    cfg = LiConfig(config_nvertlevels=4)
+    _g, st, _t0 = init_halfar(mesh, cfg, h0=500.0, r0=20000.0, device="cpu")
+    golden = np.load(EXTERNAL_GOLDEN)
+    sv = external.ExternalVelocitySolver(mesh, n_layers=4, cfg=cfg)
+    try:
+        th, bed = st.thickness.numpy(), np.zeros(mesh.nCells)
+        got = {"solve_fo": sv.solve_fo(th, bed)}
+        sv.set_fo_options(1e12, 4, 40)
+        got["solve_fo_stokes"] = sv.solve_fo_stokes(th, bed)
+    finally:
+        sv.finalize()
+    for k, v in got.items():
+        ref = golden[k]
+        err = float(np.abs(v - ref).max())
+        print(f"external {k} ({path.name}, built in {build_s:.2f} s): "
+              f"{v.shape}, max |u| {float(np.abs(v).max()):.4e} m/s, bit "
+              f"for bit with the committed golden: "
+              f"{bool(np.array_equal(v, ref))} (max abs err {err:.3e})")
+        require(v.shape == ref.shape and np.isfinite(v).all(), k)
+        require(err <= 1e-12 * float(np.abs(ref).max()),
+                f"external {k} departs from the committed golden")
+
+
+def seaice_analysis_outputs(device, dtype):
+    """Every sea-ice analysis member on the 100-cell box's seaice_box_10km
+    start and its state after 3 steps of SEAICE_DT, on `device`."""
+    from mpas_tpu_torch.cores.seaice import analysis
+    from mpas_tpu_torch.cores.seaice.core import run_steps
+    from mpas_tpu_torch.mesh.planar import box_hex_mesh
+    from mpas_tpu_torch.tools import seaice_box as sb
+    cfg = sb.config("seaice_box_10km", config_dt=SEAICE_DT,
+                    config_elastic_subcycle_number=SEAICE_SUBCYCLES)
+    grid, state, forcing, _ = sb.setup("seaice_box_10km",
+                                       box_hex_mesh(12, 12, 10000.0), cfg,
+                                       dtype, device)
+    drv = analysis.SeaiceAnalysisDriver(
+        {k: 1.0 for k in analysis.available_members()})
+    drv.init(grid, cfg)
+    drv.compute_all(grid, cfg, state, 0.0)
+    state = run_steps(grid, cfg, state, forcing, 3)
+    drv.compute_all(grid, cfg, state, 3.0 * SEAICE_DT)
+    return {f"{name}.{k}.{i}": torch.as_tensor(v).cpu().numpy()
+            for name, hist in drv.history.items()
+            for i, (_t, out) in enumerate(hist) for k, v in out.items()}
+
+
+def check_seaice_analysis(device):
+    """Phase 4: the 16 sea-ice analysis members on the 100-cell box's start
+    and its state after 3 steps (the deltas and accumulators between
+    them), float64, card vs CPU at PHYS_RTOL."""
+    fields = {w: seaice_analysis_outputs(d, torch.float64)
+              for w, d in (("cpu", torch.device("cpu")), ("cuda", device))}
+    print(f"sea-ice analysis members, {len(fields['cpu'])} outputs:")
+    worst = max(float(np.abs(fields["cuda"][k] - v).max())
+                / max(float(np.abs(v).max()), 1e-300)
+                for k, v in fields["cpu"].items())
+    print(f"  worst cuda vs cpu {worst:.3e} x max (bound {PHYS_RTOL:g})")
+    for k, v in fields["cpu"].items():
+        err = float(np.abs(fields["cuda"][k] - v).max())
+        require(np.isfinite(fields["cuda"][k]).all() == np.isfinite(v).all(),
+                k)
+        require(err <= PHYS_RTOL * max(float(np.abs(v).max()), 1e-300),
+                f"analysis {k}: {err:.3e}")
+
+
+def check_seaice_forcing(device, tmp):
+    """Phase 4: SeaiceForcingManager over a classic netCDF file written here
+    (the five atmospheric fields on 7 cells at 00, 06, 12 and 18 h, and a
+    two-record ocean file), linear and cyclic, at 4 times on the card,
+    equal to the CPU's."""
+    from mpas_tpu_torch.cores.seaice import forcing_adapter as fa
+    from mpas_tpu_torch.framework.timekeeping import Time, TimeInterval
+    from mpas_tpu_torch.io.netcdf import write_netcdf
+    rng = np.random.default_rng(12)
+    n = 7
+
+    def write(path, times, names):
+        xt = np.zeros((len(times), 64), dtype="S1")
+        for i, s in enumerate(times):
+            xt[i, :len(s)] = [c.encode() for c in s]
+        variables = {"xtime": (("Time", "StrLen"), xt)}
+        variables.update({k: (("Time", "nCells"),
+                              rng.normal(0.0, 5.0, (len(times), n)))
+                          for k in names})
+        write_netcdf(path, {"Time": len(times), "StrLen": 64, "nCells": n},
+                     variables)
+    atm, ocn = os.path.join(tmp, "atm.nc"), os.path.join(tmp, "ocn.nc")
+    write(atm, [f"0000-01-01_{h:02d}:00:00" for h in (0, 6, 12, 18)],
+          fa.ATM_FIELDS)
+    write(ocn, ["0000-01-01_00:00:00", "0000-01-16_00:00:00"],
+          fa.OCN_FIELDS)
+    t0 = Time.from_string("0000-01-01_00:00:00")
+    for kind, kw in (("linear", {}),
+                     ("cyclic", dict(cycle_start=t0,
+                                     cycle_duration=TimeInterval
+                                     .from_seconds(86400.0)))):
+        got = {}
+        for where, dev in (("cpu", "cpu"), ("cuda", device)):
+            mgr = fa.SeaiceForcingManager(atm, ocn, device=dev, **kw)
+            got[where] = [mgr.get(t0 + TimeInterval.from_seconds(s), n, 11)
+                          for s in (3 * 3600.0, 7.5 * 3600.0, 18 * 3600.0,
+                                    (26 if kind == "cyclic" else 17)
+                                    * 3600.0)]
+        for a, b in zip(got["cpu"], got["cuda"]):
+            for f in dataclasses.fields(a):
+                x, y = getattr(a, f.name), getattr(b, f.name)
+                if x is None:
+                    continue
+                require(y.device.type == "cuda"
+                        and torch.equal(x, y.cpu()), f"{kind} {f.name}")
+        print(f"SeaiceForcingManager {kind}: 4 times, every field on the "
+              f"card equal to the CPU's")
+
+
+def check_mesh_ops(device):
+    """Phase 4: ops/spline.py, ops/tensor.py and ops/rbf.py at the sizes of
+    tests/test_torch_mesh_ops.py in float64, card vs CPU: spline and
+    tensor at PHYS_RTOL x max, rbf's reconstructed values (the
+    coefficients carry the systems' condition numbers) at RBF_RTOL; the
+    Morton renumbering of a seeded random relabelling of the 642-cell
+    sphere equal on the card's host to the reference's order
+    (tests/test_torch_mesh_ops.py holds it to the JAX package)."""
+    from mpas_tpu_torch.mesh.sphere import icosahedral_mesh
+    from mpas_tpu_torch.ops import rbf, spline, tensor
+    rng = np.random.default_rng(21)
+    mesh = icosahedral_mesh(8, lloyd_iters=2)
+    x = np.cumsum(rng.uniform(0.2, 1.0, 12))
+    y = rng.normal(size=(4, 3, 12))
+    xe = rng.uniform(x[0] - 0.5, x[-1] + 0.5, 17)
+    un = rng.normal(size=(mesh.nEdges, 3))
+    ut = rng.normal(size=(mesh.nEdges, 3))
+    pts = rng.standard_normal((5, 12, 2))
+    vals = np.sin(pts[..., 0]) + pts[..., 1] ** 2
+    ep = rng.uniform(-0.5, 0.5, (5, 2))
+    u = rng.standard_normal((mesh.nEdges, 2))
+
+    def run(dev):
+        t = {k: torch.as_tensor(v, device=dev) for k, v in dict(
+            x=x, y=y, xe=xe, un=un, ut=ut, pts=pts, vals=vals, ep=ep,
+            u=u).items()}
+        m = mesh.to(dev, torch.float64)
+        y2 = spline.cubic_spline_coefficients(t["x"], t["y"])
+        en, et, _ev = tensor.edge_basis_vectors(m)
+        o = tensor.outer_product_edge(t["un"], t["ut"], en, et)
+        c = rbf.loc_2d_scalar_lin_coeffs(t["pts"], t["vals"], 0.8)
+        out = {"y2": y2,
+               "spline": spline.interpolate_cubic_spline(t["x"], t["y"], y2,
+                                                         t["xe"]),
+               "linear": spline.interpolate_linear(t["x"], t["y"][0, 0],
+                                                   t["xe"]),
+               "strain": tensor.strain_rate_r3_cell(m, o),
+               "div": tensor.divergence_of_tensor_r3_cell(m, o, en),
+               "lonlat": tensor.tensor_r3_to_lonlat(
+                   tensor.strain_rate_r3_cell(m, o)[:, 0], m.lonCell,
+                   m.latCell)}
+        vals_rbf = {"loc_2d": torch.stack(
+            rbf.loc_2d_scalar_lin_eval_with_derivs(c, t["ep"], t["pts"],
+                                                   0.8)),
+            "reconstruct": torch.stack(rbf.reconstruct(
+                m, rbf.reconstruct_init(m), t["u"]))}
+        return ({k: v.cpu().numpy() for k, v in out.items()},
+                {k: v.cpu().numpy() for k, v in vals_rbf.items()})
+    cpu, cuda = run(torch.device("cpu")), run(device)
+    print("spline, tensor and rbf, float64:")
+    compare_scaled("operators", {"cpu": cpu[0], "cuda": cuda[0]}, PHYS_RTOL)
+    compare_scaled("rbf", {"cpu": cpu[1], "cuda": cuda[1]}, RBF_RTOL)
+
+
+def check_small_sharded_li_seaice(device):
+    """Phase 4b: make_run_steps_li (SIA, IR and FO at 3 Picard x 30 CG) on
+    box_hex_mesh(20, 20, 4 km) and make_run_steps_seaice (seaice_box_10km
+    and seaice_box_10km_default at SEAICE_DT with SEAICE_SUBCYCLES) on the
+    100-cell box, 4 loopback shards on the card, float64, each held to
+    the same run unsharded on the card: at SHARD_REL_F64 x max, the FO
+    solve's velocity-driven fields at 1e-6 x max (its sharded CG dots sum
+    in another order and its CG amplifies that: the reference's
+    tests/test_landice_distributed.py holds them so)."""
+    from mpas_tpu_torch.cores.landice import distributed as ldist
+    from mpas_tpu_torch.cores.landice.config import SECONDS_PER_YEAR, LiConfig
+    from mpas_tpu_torch.cores.landice.core import run_steps as li_run_steps
+    from mpas_tpu_torch.cores.landice.init_dome import init_halfar
+    from mpas_tpu_torch.cores.seaice import distributed as sdist
+    from mpas_tpu_torch.cores.seaice.core import run_steps as si_run_steps
+    from mpas_tpu_torch.mesh.planar import box_hex_mesh
+    from mpas_tpu_torch.parallel.partition import sfc_partition
+    from mpas_tpu_torch.parallel.runner import device_mesh, place
+    from mpas_tpu_torch.tools import seaice_box as sb
+    f64 = torch.float64
+    group = device_mesh(N_SHARDS, device)
+    mesh = box_hex_mesh(20, 20, 4000.0)
+    li_fields_ = (("thickness", "cell"), ("temperature", "cell"),
+                  ("calvingFlux", "cell"))
+    for label, kw in (("SIA", dict(config_calving="thickness_threshold",
+                                   config_calving_thickness=50.0)),
+                      ("IR", dict(config_thickness_advection=
+                                  "incremental_remapping")),
+                      ("FO", dict(config_velocity_solver="FO",
+                                  config_fo_picard_iters=3,
+                                  config_fo_cg_iters=30,
+                                  config_nvertlevels=4))):
+        cfg = LiConfig(config_dt=0.25 * SECONDS_PER_YEAR, **kw)
+        host, state, _t0 = init_halfar(mesh, cfg, h0=500.0, r0=30000.0,
+                                       device="cpu")
+        ref = li_run_steps(host.to(device, f64), cfg,
+                           state.to(device, f64), 3)
+        sli = ldist.shard_li_grid(host, cfg, sfc_partition(mesh, N_SHARDS))
+        out = ldist.make_run_steps_li(sli, cfg, group)(
+            sli.local(group, f64),
+            place(ldist.shard_li_state(sli, state), group, f64), 3)
+        compare_sharded(f"land ice {label} P={N_SHARDS}", gathered(
+            sli.smesh, group, li_fields_, out, mesh),
+            {k: getattr(ref, k).cpu().numpy() for k, _ in li_fields_},
+            1e-6 if label == "FO" else SHARD_REL_F64)
+    box = box_hex_mesh(12, 12, 10000.0)
+    for name in sb.PATHS:
+        cfg = sb.config(name, config_dt=SEAICE_DT,
+                        config_elastic_subcycle_number=SEAICE_SUBCYCLES)
+        grid, state, forcing, _ = sb.setup(name, box, cfg, f64, device)
+        ref = si_run_steps(grid, cfg, state, forcing, 3)
+        ssi = sdist.shard_seaice_grid(host_grid(grid, box),
+                                      sfc_partition(box, N_SHARDS))
+        out = sdist.make_run_steps_seaice(ssi, cfg, group)(
+            ssi.local(group, f64),
+            place(sdist.shard_seaice_state(ssi, state), group, f64),
+            place(sdist.shard_seaice_forcing(ssi, forcing), group, f64), 3)
+        compare_sharded(f"{name} P={N_SHARDS}",
+                        seaice_held(seaice_gathered(ssi, group, out, box)),
+                        seaice_held(ref), SHARD_REL_F64)
+
+
+def host_grid(grid, mesh):
+    """A device sea-ice grid on the host, with the host mesh it was built
+    from (the layout and the per-shard variational build read the mesh's
+    float64 geometry; the weak geometry's values survive the round trip
+    to float64 exactly)."""
+    return dataclasses.replace(grid.to(torch.device("cpu"), torch.float64),
+                               mesh=mesh)
+
+
+def seaice_gathered(ssi, group, state, mesh):
+    """A sharded sea-ice state's owned slots gathered into the global
+    SeaiceState (host tensors)."""
+    from mpas_tpu_torch.parallel.runner import gather_field
+    got = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if v is None:
+            continue
+        kind = "vertex" if f.name in ("uVelocity", "vVelocity") else "cell"
+        got[f.name] = torch.from_numpy(gather_field(
+            ssi.smesh, group.stack(v), kind,
+            mesh.nVertices if kind == "vertex" else mesh.nCells))
+    return dataclasses.replace(state, **got)
+
+
+def seaice_held(state):
+    """tools/seaice_box.held_fields as numpy."""
+    from mpas_tpu_torch.tools import seaice_box as sb
+    return {k: v.cpu().numpy() for k, v in sb.held_fields(state).items()}
+
+
+def run_landice_path(name, device, card, mesh, mesh_s, profile=None):
+    """Phase 5, a land-ice path (tools/landice_dome.py) in float64 on the
+    card on the shared 103,800-cell box: setup seconds (mesh, make_grid
+    with build_fo_geom, init), one warm step and LI_TIMED_STEPS[name]
+    timed steps each synchronised (min / median / max ms), peak memory;
+    launch counts zeroed before the warm step and read after the last
+    (neither kernel is on the path: both must stay 0); global_stats every
+    step, read after the timed steps. Gates: finite fields, thickness
+    >= 0, temperature <= 273.15 K, surface speed > 0, the thickest cell
+    thins; on landice_dome_4km the volume over the 11 steps within
+    LI_VOLUME_RTOL and a basal speed of 0; on landice_dome_4km_fo a
+    calving flux of 0, the basal speed below the surface speed (the
+    reference's fo_velocity copies the lowest layer's velocity to the bed:
+    ROADMAP §3), water pressure in [0, overburden], effective pressure
+    >= 0. Then one profiled step (kernels, device busy, the shares of
+    velocity, advection, thermal, calving, hydrology and stats), and on
+    the FO path the CG residual after each Picard pass of the last timed
+    step."""
+    from torch.profiler import record_function
+
+    from mpas_tpu_torch import kernels
+    from mpas_tpu_torch.cores.landice.config import SECONDS_PER_YEAR
+    from mpas_tpu_torch.cores.landice.core import total_volume
+    from mpas_tpu_torch.cores.landice.hydro import effective_pressure
+    from mpas_tpu_torch.tools import landice_dome as ld
+    cfg = ld.config(name)
+    grid, state, hydro, secs = ld.setup(name, mesh, cfg, ld.DOME,
+                                        torch.float64, device)
+    nc, nz = state.temperature.shape
+    n_ice = int((state.thickness > 1.0).sum())
+    fo_counts = (f" {cfg.config_fo_picard_iters} Picard x "
+                 f"{cfg.config_fo_cg_iters} CG"
+                 if cfg.config_velocity_solver == "FO" else "")
+    print(f"{name} setup: {nc} cells x {nz} levels, {n_ice} with ice, "
+          f"velocity {cfg.config_velocity_solver}"
+          f"{fo_counts}"
+          f", thermal {cfg.config_thermal_solver}, advection "
+          f"{cfg.config_thickness_advection}, calving {cfg.config_calving},"
+          f" hydrology {'sgh_step_full' if hydro is not None else 'none'},"
+          f" dt {cfg.config_dt / SECONDS_PER_YEAR:g} yr, float64; host "
+          f"mesh {mesh_s:.2f} s, grid (build_fo_geom included) "
+          f"{secs['grid']:.2f} s, init {secs['init']:.2f} s")
+    require(nc == ld.MESH[0] * ld.MESH[1] - 2 * (ld.MESH[0] + ld.MESH[1])
+            + 4, f"{name} built the wrong size")
+    h0 = state.thickness.clone()
+    v0 = float(total_volume(grid, state))
+    kernels.reset_launch_counts()
+    state, hydro, stats = ld.step(grid, cfg, state, hydro)     # warm step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    times = []
+    history = [stats]
+    resid = []
+    steps = LI_TIMED_STEPS[name]
+    for _ in range(steps):
+        resid = []
+        t0 = time.perf_counter()
+        state, hydro, stats = ld.step(grid, cfg, state, hydro,
+                                      resid_out=resid)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        history.append(stats)
+    counts = dict(kernels.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    history = [{k: float(v) for k, v in s.items()} for s in history]
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        require(v is None or bool(torch.isfinite(v).all()),
+                f"{name}: {f.name} not finite")
+    h_min = float(state.thickness.min())
+    t_max = float(state.temperature.max())
+    u = state.normalVelocity
+    surface, basal = float(u[:, 0].abs().max()), float(u[:, -1].abs().max())
+    c = int(torch.argmax(h0))
+    thinned = float(h0[c]) - float(state.thickness[c])
+    v1 = history[-1]["totalIceVolume"]
+    ms = sorted(times)
+    med = ms[len(ms) // 2]
+    print(f"{name} float64 on {card}: 1 + {steps} steps, ms/step min / "
+          f"median / max {ms[0]:.2f} / {med:.2f} / {ms[-1]:.2f}, "
+          f"{nc * 1e3 / med:.1f} cell updates/s; peak device memory "
+          f"{peak_gb:.3f} GB; min thickness {h_min:.3e} m, max temperature "
+          f"{t_max:.4f} K, max |u| surface {surface:.4e} / basal "
+          f"{basal:.4e} m/s, the thickest cell thinned {thinned:.4e} m, "
+          f"volume change over {steps + 1} steps {(v1 - v0) / v0:.3e}; "
+          f"launches {counts} (the path reaches neither kernel)")
+    print(f"{name} global_stats, warm step and last: "
+          + "; ".join(f"{k} {history[0][k]:.6e} -> {history[-1][k]:.6e}"
+                      for k in history[-1]))
+    require(h_min >= 0.0, f"{name}: negative thickness {h_min}")
+    require(t_max <= 273.15, f"{name}: temperature {t_max} K")
+    require(surface > 0.0, f"{name}: the ice does not move")
+    require(thinned > 0.0, f"{name}: the thickest cell did not thin")
+    require(counts == {k: 0 for k in counts}, f"{name}: {counts}")
+    if hydro is None:
+        require(basal == 0.0, f"{name}: basal speed {basal}")
+        require(abs(v1 - v0) / v0 <= LI_VOLUME_RTOL,
+                f"{name}: volume not conserved: {(v1 - v0) / v0:.3e}")
+    else:
+        ovb = cfg.rho_ice * cfg.gravity * state.thickness
+        P = hydro.waterPressure
+        p_lo = float(P.min())
+        p_over = float((P - ovb).max())
+        n_min = float(effective_pressure(cfg, hydro, state.thickness).min())
+        cf = history[-1]["totalCalvingFlux"]
+        print(f"{name}: water pressure min {p_lo:.4e} Pa, max above "
+              f"overburden {p_over:.4e} Pa, min effective pressure "
+              f"{n_min:.4e} Pa, max sheet "
+              f"{float(hydro.waterThickness.max()):.4e} m, max channel "
+              f"{float(hydro.channelArea.max()):.4e} m^2, "
+              f"calving flux {cf:.4e} m^3; CG residual after each Picard "
+              f"pass of the last step: "
+              + ", ".join(f"{float(r):.4e}" for r in resid))
+        require(basal < surface, f"{name}: basal {basal} >= surface")
+        require(cf == 0.0, f"{name}: calving flux {cf}")
+        require(p_lo >= 0.0 and p_over <= 0.0,
+                f"{name}: water pressure outside [0, overburden]")
+        require(n_min >= 0.0, f"{name}: effective pressure {n_min}")
+        require(len(resid) == cfg.config_fo_picard_iters, resid)
+    box = [state, hydro]
+
+    def one_step():
+        box[0], box[1], _ = ld.step(grid, cfg, box[0], box[1],
+                                    span=record_function)
+    _out, n_kern, busy, part_ms = kernel_census(one_step, spans=ld.PARTS)
+    print(f"{name} one profiled step on {card}: {n_kern} kernels, device "
+          f"busy {busy:.3f} ms ({100.0 * (1.0 - busy / med):.1f}% idle "
+          f"against the median {med:.2f} ms/step); "
+          + "; ".join(f"{k} {part_ms[k]:.3f} ms "
+                      f"({100.0 * part_ms[k] / max(busy, 1e-9):.1f}%)"
+                      for k in ld.PARTS if k in part_ms))
+    if profile:
+        profile_steps(name, one_step, profile, steps=1)
+    return counts
+
+
+def run_seaice_4way_path(device, card, mesh):
+    """Phase 5, seaice_box_10km_4way: seaice_box_10km (E3SM options, 120
+    elastic subcycles, float32) sharded 4 ways by sfc_partition (halo
+    depth 3) in loopback on the card, from the same start: the layout's
+    host seconds and sizes, 1 warm step and SEAICE_4WAY_STEPS steps timed
+    in turns with the unsharded path (A, B, B, A), the launch counts (0),
+    the sea-ice gates of the unsharded path, and the departure of the
+    gathered fields from the unsharded run's after the same steps (printed
+    per field, bit for bit or not: torch.einsum's cuBLAS batched
+    contractions round a row differently at another batch count, and the
+    EVP amplifies that; PERF.md)."""
+    from mpas_tpu_torch import kernels
+    from mpas_tpu_torch.cores.seaice import distributed as sdist
+    from mpas_tpu_torch.cores.seaice.core import seaice_timestep
+    from mpas_tpu_torch.parallel.partition import sfc_partition
+    from mpas_tpu_torch.parallel.runner import device_mesh, place
+    from mpas_tpu_torch.tools import seaice_box as sb
+    f32 = torch.float32
+    name = "seaice_box_10km"
+    cfg = sb.config(name)
+    grid, state0, forcing, _ = sb.setup(name, mesh, cfg, f32, device)
+    t0 = time.perf_counter()
+    ssi = sdist.shard_seaice_grid(host_grid(grid, mesh),
+                                  sfc_partition(mesh, N_SHARDS))
+    layout_s = time.perf_counter() - t0
+    group = device_mesh(N_SHARDS, device)
+    t0 = time.perf_counter()
+    grid_l = ssi.local(group, f32)
+    local_s = time.perf_counter() - t0
+    state_l = place(sdist.shard_seaice_state(ssi, state0.to("cpu", f32)),
+                    group, f32)
+    forcing_l = place(sdist.shard_seaice_forcing(ssi, forcing.to("cpu",
+                                                                 f32)),
+                      group, f32)
+    run = sdist.make_run_steps_seaice(ssi, cfg, group)
+    print(f"seaice_box_10km_4way layout: {layout_text(ssi.smesh)}; host "
+          f"layout {layout_s:.2f} s, local grid (the variational build on "
+          f"the flat mesh) {local_s:.2f} s")
+    dt = float(cfg.config_dt)
+    kernels.reset_launch_counts()
+    n = SEAICE_4WAY_STEPS
+    runs = {"seaice_box_10km": [state0, lambda s: seaice_timestep(
+        grid, cfg, s, forcing, dt)[0]],
+        "seaice_box_10km_4way": [state_l, lambda s: run(grid_l, s,
+                                                        forcing_l, 1)]}
+
+    def stepper_of(key):
+        def step():
+            runs[key][0] = runs[key][1](runs[key][0])
+        return step
+    torch.cuda.reset_peak_memory_stats(device)
+    in_turns({k: stepper_of(k) for k in runs}, steps=n)
+    counts = dict(kernels.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    # both runs took 1 + 2 n steps (in_turns: an untimed step, then
+    # A, B, B, A of n steps)
+    ref, out = runs["seaice_box_10km"][0], runs["seaice_box_10km_4way"][0]
+    full = seaice_gathered(ssi, group, out, mesh)
+    got, held = seaice_held(full), seaice_held(ref)
+    exact = all(np.array_equal(got[k], v) for k, v in held.items())
+    print(f"seaice_box_10km_4way float32 on {card}: {1 + 2 * n} steps each,"
+          f" peak device memory {peak_gb:.3f} GB; launches {counts} (the "
+          f"path reaches neither kernel); bit for bit with the unsharded "
+          f"run: {exact}")
+    for k, v in held.items():
+        scale = max(float(np.abs(v).max()), 1e-300)
+        print(f"  {k}: sharded vs unsharded max abs err "
+              f"{float(np.abs(got[k] - v).max()):.3e} = "
+              f"{float(np.abs(got[k] - v).max()) / scale:.3e} x max")
+        require(np.isfinite(got[k]).all(), f"4way {k} not finite")
+    asum = full.iceAreaCategory.sum(-1)
+    a_lo, a_hi = float(asum.min()), float(asum.max())
+    v_min = min(float(full.iceVolumeCategory.min()),
+                float(full.snowVolumeCategory.min()))
+    u_max = float(torch.hypot(full.uVelocity, full.vVelocity).max())
+    q_max = max(float(full.iceEnthalpy.max()),
+                float(full.snowEnthalpy.max()))
+    s_lo = float(full.iceSalinity.min())
+    s_hi = float(full.iceSalinity.max())
+    print(f"seaice_box_10km_4way gates: area a cell [{a_lo:.6f}, "
+          f"{a_hi:.8f}], min volume {v_min:.3e} m, max |u| {u_max:.4f} m/s,"
+          f" max enthalpy {q_max:.4e} J/m3, salinity [{s_lo:.4f}, "
+          f"{s_hi:.4f}] psu")
+    require(0.0 <= a_lo and a_hi <= 1.0 + 1e-5, f"4way area {a_hi}")
+    require(v_min >= 0.0, f"4way: a negative volume {v_min}")
+    require(u_max < 1.0, f"4way: max |u| {u_max}")
+    require(q_max <= 0.0, f"4way: enthalpy above 0: {q_max}")
+    require(0.0 <= s_lo and s_hi <= 40.0, f"4way: salinity [{s_lo}, {s_hi}]")
+    require(counts == {k: 0 for k in counts}, f"4way: {counts}")
+    return counts
+
+
+def gather_census(fn):
+    """(device busy ms, gather kernels' ms, gather kernels' count) of one
+    call of fn under torch.profiler: the gathers are the advanced-indexing
+    and gather kernels (index_elementwise, indexSelect, gather), scatters
+    (index_put, indexFunc of index_add, scatter) excluded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = gather_ms = 0.0
+    n_gather = 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        busy += e.self_device_time_total / 1e3
+        key = e.key.lower()
+        if (("index" in key or "gather" in key) and "put" not in key
+                and "scatter" not in key and "indexfunc" not in key):
+            gather_ms += e.self_device_time_total / 1e3
+            n_gather += e.count
+    return busy, gather_ms, n_gather
+
+
+def run_numberings(device, card, mesh64):
+    """Phase 5, jw_120km in three numberings of its 40,962-cell mesh: the
+    generator's, a seeded random relabelling (mesh/reorder.py
+    apply_permutations) and sfc_reorder_mesh of that; each from init_jw on
+    its own mesh, float32, NUMBERING_STEPS steps in turns (A, B, C, A, B,
+    C) after one warm step; ms/step; from one profiled step each the
+    device-busy ms and the gathers' ms and count; each run's final state,
+    un-permuted, held to the generator order's at SHARD_REL_F32 on
+    max |a - b| / (1 + |b|); 12 K1 and 15 K2 launches a step."""
+    from mpas_tpu_torch import kernels
+    from mpas_tpu_torch.cores.atmosphere.time_integration import (
+        init_carry, srk3_step)
+    from mpas_tpu_torch.mesh.reorder import (apply_permutations,
+                                             sfc_reorder_mesh)
+    rng = np.random.default_rng(2026)
+    pc, pe, pv = (rng.permutation(n) for n in (mesh64.nCells, mesh64.nEdges,
+                                               mesh64.nVertices))
+    t0 = time.perf_counter()
+    shuffled = apply_permutations(mesh64, pc, pe, pv)
+    shuffle_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    normalized, p2 = sfc_reorder_mesh(shuffled)
+    sfc_s = time.perf_counter() - t0
+    meshes = {"generator": (mesh64, None),
+              "random": (shuffled, {"cell": pc, "edge": pe}),
+              "random+sfc": (normalized, {"cell": p2["cell"][pc],
+                                          "edge": p2["edge"][pe]})}
+
+    def span(m):
+        coc = m.cellsOnCell.numpy()
+        mask = m.edgesOnCellMask.numpy() > 0
+        return float(np.abs(coc - np.arange(m.nCells)[:, None])[mask].mean())
+    print(f"jw_120km numberings: apply_permutations {shuffle_s:.2f} s, "
+          f"sfc_reorder_mesh {sfc_s:.2f} s; mean |cellsOnCell - cell| "
+          + ", ".join(f"{k} {span(m):.1f}" for k, (m, _) in meshes.items()))
+    runs = {}
+    for key, (m, perms) in meshes.items():
+        cfg, grid, state, diag = jw_setup(m, 26, 720.0, 120000.0)
+        grid = grid.to(device, torch.float32)
+        carry = init_carry(grid, cfg, state.to(device, torch.float32),
+                           diag.to(device, torch.float32), cfg.config_dt)
+        runs[key] = [grid, cfg, carry, perms]
+    kernels.reset_launch_counts()
+    before = dict(kernels.launch_counts)
+    for r in runs.values():                                  # warm step
+        r[2] = srk3_step(r[0], r[1], r[2], r[1].config_dt)
+    torch.cuda.synchronize()
+    ms = {k: [] for k in runs}
+    for key in list(runs) * 2:
+        r = runs[key]
+        t0 = time.perf_counter()
+        for _ in range(NUMBERING_STEPS):
+            r[2] = srk3_step(r[0], r[1], r[2], r[1].config_dt)
+        torch.cuda.synchronize()
+        ms[key].append(1e3 * (time.perf_counter() - t0) / NUMBERING_STEPS)
+    counts = dict(kernels.launch_counts)
+    n_steps = 3 * (1 + 2 * NUMBERING_STEPS)
+    require(counts["acoustic_cell_update"] - before["acoustic_cell_update"]
+            == K1_PER_STEP * n_steps, counts)
+    require(counts["tinydot"] - before["tinydot"]
+            == K2_PER_STEP["jw_120km"] * n_steps, counts)
+    print("jw_120km numberings in turns (A, B, C, A, B, C), float32 on "
+          f"{card}, ms/step: " + "; ".join(
+              f"{k} {' / '.join(f'{t:.2f}' for t in v)}"
+              for k, v in ms.items()))
+    ref = None
+    for key, (grid, cfg, carry, perms) in runs.items():
+        box = [carry]
+
+        def one():
+            box[0] = srk3_step(grid, cfg, box[0], cfg.config_dt)
+        busy, g_ms, g_n = gather_census(one)
+        runs[key][2] = box[0]
+        print(f"jw_120km {key} one profiled step: device busy {busy:.3f} "
+              f"ms, gathers {g_ms:.3f} ms in {g_n} kernels "
+              f"({100.0 * g_ms / max(busy, 1e-9):.1f}%)")
+    for key, (grid, cfg, carry, perms) in runs.items():
+        fields = {}
+        for k, kind in ATM_FIELDS:
+            v = getattr(carry.state, k).cpu().numpy()
+            if perms is not None:
+                v = v[perms[kind]]
+            fields[k] = v
+        if ref is None:
+            ref = fields
+            continue
+        exact = all(np.array_equal(fields[k], ref[k]) for k in ref)
+        errs = {k: float((np.abs(fields[k] - r) / (1.0 + np.abs(r))).max())
+                for k, r in ref.items()}
+        print(f"jw_120km {key} un-permuted vs the generator order after "
+              f"{2 + 2 * NUMBERING_STEPS} steps (bit for bit: {exact}): "
+              "max |a - b| / (1 + |b|) " + ", ".join(
+                  f"{k} {e:.3e}" for k, e in errs.items())
+              + f" (bound {SHARD_REL_F32:g})")
+        for k, e in errs.items():
+            require(np.isfinite(fields[k]).all() and e <= SHARD_REL_F32,
+                    f"jw_120km {key}: {k} departs from the generator "
+                    "order")
+    return counts
+
+
 def timed(label, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -3392,8 +4190,9 @@ def main():
                              "supercell_2km_kf, supercell_2km_cam, "
                              "jw_var60_15, "
                              "ocean_channel_10km, the two 4-way paths, "
-                             "ocean_global_120km, seaice_box_10km and "
-                             "seaice_box_10km_default; "
+                             "ocean_global_120km, seaice_box_10km, "
+                             "seaice_box_10km_default and (one step each) "
+                             "landice_dome_4km and landice_dome_4km_fo; "
                              "the kernel tables go to "
                              "DIR/profile_<path>.txt")
     parser.add_argument("--seed", type=int, default=0,
@@ -3446,13 +4245,20 @@ def main():
     with tempfile.TemporaryDirectory(prefix="framework_io") as tmp:
         timed("forcing group", check_forcing_group, device, tmp)
         timed("registry", check_registry, device, tmp)
+        timed("sea-ice forcing manager", check_seaice_forcing, device, tmp)
     timed("small f64 sea ice", check_small_seaice, device)
     timed("sea-ice variational build on the host",
           check_seaice_variational_build)
+    timed("f64 sea-ice analysis members", check_seaice_analysis, device)
+    timed("small f64 land ice", check_small_landice, device)
+    timed("land-ice external solver", check_landice_external)
+    timed("f64 spline, tensor and rbf", check_mesh_ops, device)
     timed("small f64 real-data init + 3 steps", check_small_real, device,
           mesh8)
     timed("f64 regional zones, LBC and IAU", check_regional_iau, device)
     timed("small f64 sharded, loopback", check_small_sharded, device, mesh8)
+    timed("small f64 sharded land ice and sea ice, loopback",
+          check_small_sharded_li_seaice, device)
     timed("process group on NCCL", check_nccl_exchange, device, mesh8)
 
     # one 40,962-cell mesh for jw_120km and sw_tc5_120km: each init
@@ -3553,6 +4359,8 @@ def main():
                                                (6, 6, 40))),)))
     counts[OCEAN_GLOBAL] = timed(OCEAN_GLOBAL, run_ocean_global_path, device,
                                  card, mesh64, args.profile)
+    counts["jw_120km_numberings"] = timed(
+        "jw_120km in three numberings", run_numberings, device, card, mesh64)
     del mesh64
     # one 40,000-cell box for the two sea-ice paths
     from mpas_tpu_torch.mesh.planar import box_hex_mesh
@@ -3562,6 +4370,18 @@ def main():
     box_s = time.perf_counter() - t0
     for name in seaice_box.PATHS:
         counts[name] = timed(name, run_seaice_path, name, device, card, box,
+                             box_s, args.profile)
+    counts["seaice_box_10km_4way"] = timed(
+        "seaice_box_10km_4way", run_seaice_4way_path, device, card, box)
+    del box
+    # one 103,800-cell box for the two land-ice paths
+    from mpas_tpu_torch.tools import landice_dome
+    t0 = time.perf_counter()
+    box = timed("box_hex_mesh(302, 348, 4 km)", box_hex_mesh,
+                *landice_dome.MESH)
+    box_s = time.perf_counter() - t0
+    for name in landice_dome.PATHS:
+        counts[name] = timed(name, run_landice_path, name, device, card, box,
                              box_s, args.profile)
     del box
 

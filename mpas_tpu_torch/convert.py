@@ -3,7 +3,8 @@
 The input is the reference's `AtmGrid`/`AtmState`/`AtmDiag`/`AtmCarry`,
 `PhysicsState`, `UrbanState`, `SWState`,
 `OcnGrid`/`OcnState`/`OcnSurfaceForcing`,
-`SeaiceGrid`/`SeaiceState`/`SeaiceForcing`, `ShardedMesh`, `BdyMasks`,
+`SeaiceGrid`/`SeaiceState`/`SeaiceForcing`, `LiGrid`/`LiState`,
+`HydroState`, `ShardedMesh`, `BdyMasks`,
 `LbcRecord` or `IAUIncrements` flattened to
 nested dicts of numpy arrays plus their static ints and
 floats (nCells, nz, cf1..3, adv_beta, sphere_radius, ...): the same field
@@ -34,6 +35,9 @@ from mpas_tpu_torch.cores.atmosphere.physics.urban import UrbanState
 from mpas_tpu_torch.cores.atmosphere.time_integration import AtmCarry
 from mpas_tpu_torch.cores.ocean.forcing import OcnSurfaceForcing
 from mpas_tpu_torch.cores.init_atmosphere.surface_lbc import LbcRecord
+from mpas_tpu_torch.cores.landice.core import LiGrid, LiState
+from mpas_tpu_torch.cores.landice.fo_stokes import FoGeom
+from mpas_tpu_torch.cores.landice.hydro import HydroState
 from mpas_tpu_torch.cores.ocean.state import OcnGrid, OcnState
 from mpas_tpu_torch.cores.seaice.state import (SeaiceForcing, SeaiceGrid,
                                                SeaiceState)
@@ -145,6 +149,26 @@ def seaice_state_from_arrays(d) -> SeaiceState:
 
 def seaice_forcing_from_arrays(d) -> SeaiceForcing:
     return _build(SeaiceForcing, d)
+
+
+def landice_grid_from_arrays(d) -> LiGrid:
+    """A reference LiGrid; its FoGeom (a NamedTuple there) as a dict of
+    the same fields, or None."""
+    geom = d["fo_geom"]
+    if geom is not None:
+        geom = {k: np.asarray(v) for k, v in dict(geom).items()}
+        geom["nbr_mask"] = geom["nbr_mask"].astype(np.float64)
+        geom = _build(FoGeom, geom)
+    return _build(LiGrid, d, mesh=mesh_from_arrays(d["mesh"]),
+                  fo_geom=geom)
+
+
+def landice_state_from_arrays(d) -> LiState:
+    return _build(LiState, d)
+
+
+def hydro_state_from_arrays(d) -> HydroState:
+    return _build(HydroState, d)
 
 
 def sharded_mesh_from_arrays(d) -> ShardedMesh:

@@ -1,5 +1,5 @@
-"""Count the torch operations of the physics on the supercell, and of a
-sea-ice step.
+"""Count the torch operations of the physics on the supercell, of a
+sea-ice step and of a land-ice step.
 
     python -m mpas_tpu_torch.tools.op_count [--n 12] [--nz 40] [--device cpu]
 
@@ -17,7 +17,10 @@ also reckons the bytes a call moves per cell (count_bytes), which scales
 with the cells. For the two sea-ice paths of tools/seaice_box.py on the
 100-cell box (float64): one seaice_timestep, its velocity solve (and the
 calls one elastic subcycle adds), its transport and its column physics.
-The device defaults to cuda:0.
+For the two land-ice paths of tools/landice_dome.py on a small dome
+(box_hex_mesh(20, 20, 3 km), h0 500 m, r0 25 km, float64): one step of
+each and its parts, and on the FO path the calls one CG iteration and
+one Picard pass add. The device defaults to cuda:0.
 """
 
 from __future__ import annotations
@@ -217,6 +220,51 @@ def seaice_run(device=None):
     return out
 
 
+def landice_run(device=None):
+    """{label: op count} of a step of each land-ice path and its parts, on
+    box_hex_mesh(20, 20, 3 km) with a dome of h0 500 m, r0 25 km."""
+    from torch.profiler import record_function
+
+    from mpas_tpu_torch.cores.landice.core import fo_velocity
+    from mpas_tpu_torch.mesh.planar import box_hex_mesh
+    from mpas_tpu_torch.tools import landice_dome
+    device = resolve_device(device)
+    mesh = box_hex_mesh(20, 20, 3000.0)
+    out = {}
+    for name in landice_dome.PATHS:
+        cfg = landice_dome.config(name)
+        grid, state, hydro, _ = landice_dome.setup(
+            name, mesh, cfg, (500.0, 25000.0), torch.float64, device)
+        out[f"{name} step"] = count_ops(
+            lambda: landice_dome.step(grid, cfg, state, hydro))
+        spans = {}
+
+        def span(part):
+            spans.setdefault(part, 0)
+            return record_function(f"span::{part}")
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            landice_dome.step(grid, cfg, state, hydro, span=span)
+        for e in prof.events():
+            part = e.cpu_parent
+            while part is not None and not part.name.startswith("span::"):
+                part = part.cpu_parent
+            if (part is not None and e.name.startswith("aten::")
+                    and e.name not in NO_KERNEL):
+                key = f"{name} {part.name[6:]}"
+                out[key] = out.get(key, 0) + 1
+        if cfg.config_velocity_solver == "FO":
+            def velocity(picard, cg):
+                c = dataclasses.replace(cfg, config_fo_picard_iters=picard,
+                                        config_fo_cg_iters=cg)
+                return count_ops(lambda: fo_velocity(
+                    grid, c, state.thickness, state.temperature))
+            v11, v12, v21 = velocity(1, 1), velocity(1, 2), velocity(2, 1)
+            out[f"{name} one CG iteration"] = v12 - v11
+            out[f"{name} one Picard pass with 1 CG iteration"] = v21 - v11
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--n", type=int, default=12)
@@ -230,6 +278,8 @@ def main():
               f"levels, {device})")
     for label, k in seaice_run(device).items():
         print(f"{label}: {k} aten calls (100-cell box, {device})")
+    for label, k in landice_run(device).items():
+        print(f"{label}: {k} aten calls (324-cell dome, {device})")
 
 
 if __name__ == "__main__":

@@ -658,3 +658,93 @@ def test_seaice_steps_on_the_card_match_the_cpu(cuda_device, name, basis,
     for k, r in out["cpu"].items():
         assert out["cuda"][k].device.type == "cuda"
         assert_close([out["cuda"][k].cpu()], [r], 1e-11)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,steps,kw", [
+    ("landice_dome_4km", 3, {}),
+    ("landice_dome_4km_fo", 2, dict(config_fo_picard_iters=3,
+                                    config_fo_cg_iters=10))])
+def test_landice_steps_on_the_card_match_the_cpu(cuda_device, name, steps,
+                                                 kw):
+    """Both land-ice paths (tools/landice_dome.py) on the small dome
+    (box_hex_mesh(20, 20, 3 km), h0 500 m, r0 25 km) in float64: the
+    state and global_stats after `steps` fe_steps on the card agree with
+    the CPU at 1e-11 x max|CPU| (the FO solve at 3 Picard x 10 CG, where
+    its CG does not amplify rounding past that: tests/test_torch_landice.py);
+    on the FO path one hydrology step on each device from the CPU's ice
+    state too (the hydrology amplifies its inputs' rounding: ROADMAP §3)."""
+    from mpas_tpu_torch.cores.landice.core import fe_step
+    from mpas_tpu_torch.cores.landice.hydro import sgh_step_full
+    from mpas_tpu_torch.cores.landice.statistics import global_stats
+    from mpas_tpu_torch.mesh.planar import box_hex_mesh
+    from mpas_tpu_torch.tools import landice_dome as ld
+    mesh = box_hex_mesh(20, 20, 3000.0)
+    cfg = ld.config(name, **kw)
+    dt = float(cfg.config_dt)
+    runs, out = {}, {}
+    for dev in (torch.device("cpu"), cuda_device):
+        grid, state, hydro, _ = ld.setup(name, mesh, cfg, (500.0, 25000.0),
+                                         torch.float64, dev)
+        for _ in range(steps):
+            state = fe_step(grid, cfg, state, dt)
+        runs[dev.type] = (grid, hydro)
+        out[dev.type] = {f: getattr(state, f) for f in (
+            "thickness", "temperature", "normalVelocity", "calvingFlux")}
+        out[dev.type].update({f"stats.{k}": v for k, v in global_stats(
+            grid, cfg, state).items()})
+        if dev.type == "cpu":
+            ice = state
+    if runs["cpu"][1] is not None:
+        for where, (grid, hydro) in runs.items():
+            dev = grid.bedTopography.device
+            h = ice.thickness.to(dev)
+            hydro = sgh_step_full(grid, cfg, hydro, h,
+                                  ice.basalMeltRate.to(dev),
+                                  ld.sliding_speed(h), dt,
+                                  n_sub=ld.HYDRO_SUBSTEPS)
+            out[where].update(waterPressure=hydro.waterPressure,
+                              waterThickness=hydro.waterThickness,
+                              channelArea=hydro.channelArea)
+    for k, r in out["cpu"].items():
+        assert out["cuda"][k].device.type == "cuda", k
+        assert_close([out["cuda"][k].cpu()], [r], 1e-11)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["seaice_box_10km",
+                                  "seaice_box_10km_default"])
+def test_sharded_seaice_on_the_card_matches_unsharded(cuda_device, name):
+    """make_run_steps_seaice on 4 loopback shards of the 100-cell box on
+    the card, float64, 3 steps of 600 s with 5 elastic subcycles: the
+    gathered velocities and ice area and volume equal the unsharded run
+    on the card at 1e-11 x max (not bit for bit on the variational path:
+    its cuBLAS einsums round a row differently at another batch count)."""
+    from mpas_tpu_torch.cores.seaice import distributed as sdist
+    from mpas_tpu_torch.cores.seaice.core import run_steps
+    from mpas_tpu_torch.mesh.planar import box_hex_mesh
+    from mpas_tpu_torch.parallel.partition import sfc_partition
+    from mpas_tpu_torch.parallel.runner import (device_mesh, gather_field,
+                                                place)
+    from mpas_tpu_torch.tools import seaice_box as sb
+    f64 = torch.float64
+    mesh = box_hex_mesh(12, 12, 10000.0)
+    cfg = sb.config(name, config_dt=600.0, config_elastic_subcycle_number=5)
+    host, state, forcing, _ = sb.setup(name, mesh, cfg, f64, "cpu")
+    ref = run_steps(host.to(cuda_device, f64), cfg,
+                    state.to(cuda_device, f64),
+                    forcing.to(cuda_device, f64), 3)
+    ssi = sdist.shard_seaice_grid(host, sfc_partition(mesh, 4))
+    group = device_mesh(4, cuda_device)
+    out = sdist.make_run_steps_seaice(ssi, cfg, group)(
+        ssi.local(group, f64),
+        place(sdist.shard_seaice_state(ssi, state), group, f64),
+        place(sdist.shard_seaice_forcing(ssi, forcing), group, f64), 3)
+    for f in ("uVelocity", "vVelocity", "iceAreaCategory",
+              "iceVolumeCategory"):
+        kind = "vertex" if f in ("uVelocity", "vVelocity") else "cell"
+        got = gather_field(ssi.smesh, group.stack(getattr(out, f)), kind,
+                           mesh.nVertices if kind == "vertex"
+                           else mesh.nCells)
+        assert_close([torch.from_numpy(got)], [getattr(ref, f).cpu()],
+                     1e-11)

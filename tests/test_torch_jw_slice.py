@@ -183,6 +183,26 @@ import mpas_tpu_torch.cores.seaice.column
 import mpas_tpu_torch.cores.seaice.init_square
 import mpas_tpu_torch.cores.seaice.core
 import mpas_tpu_torch.tools.seaice_box
+import mpas_tpu_torch.cores.seaice.analysis
+import mpas_tpu_torch.cores.seaice.forcing_adapter
+import mpas_tpu_torch.cores.seaice.distributed
+import mpas_tpu_torch.cores.landice
+import mpas_tpu_torch.cores.landice.config
+import mpas_tpu_torch.cores.landice.core
+import mpas_tpu_torch.cores.landice.init_dome
+import mpas_tpu_torch.cores.landice.fo_stokes
+import mpas_tpu_torch.cores.landice.thermal_enthalpy
+import mpas_tpu_torch.cores.landice.advection_ir
+import mpas_tpu_torch.cores.landice.calving
+import mpas_tpu_torch.cores.landice.hydro
+import mpas_tpu_torch.cores.landice.statistics
+import mpas_tpu_torch.cores.landice.external
+import mpas_tpu_torch.cores.landice.distributed
+import mpas_tpu_torch.mesh.reorder
+import mpas_tpu_torch.ops.rbf
+import mpas_tpu_torch.ops.spline
+import mpas_tpu_torch.ops.tensor
+import mpas_tpu_torch.tools.landice_dome
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCK]
 sys.exit(1 if bad else 0)
 """
