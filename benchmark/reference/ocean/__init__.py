@@ -1,0 +1,1 @@
+"""Frozen copies for the benchmark's reference (see benchmark/reference)."""
