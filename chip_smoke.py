@@ -169,7 +169,8 @@ seconds):
      per ocean cell) every step: volume conserved, BGC pools >= 0, max |u|
      < 5 m/s, 185 K2 launches in each step's dynamics (no K1), every
      particle in an ocean cell; one profiled step with the shares of
-     dynamics, BGC, analysis and particles, each member's device ms; then
+     the program's spans ocn.timestep, ocn.bgc, ocn.analysis.<member> and
+     ocn.particles (and of none of them), each member's device ms; then
      the members and one particle step in f64 on the card and the CPU at
      1e-11 x max;
    - seaice_box_10km: the sea-ice box (mpas_tpu_torch.tools.seaice_box)
@@ -274,6 +275,7 @@ land-ice path.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -1150,48 +1152,65 @@ def run_supercell_path(device, card):
     return cfg, grid, carry, counts
 
 
-def kernel_census(fn, module=None, regions=(), spans=()):
-    """(fn(), kernels, device busy ms) of one call of fn under
-    torch.profiler: every kernel the call launched and the sum of their
-    device times. With `regions`, functions of `module` wrapped in a
-    record_function span for the call, and `spans`, names of spans fn
-    opens itself: a fourth item maps each to the device ms of the kernels
-    it launched."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+@contextlib.contextmanager
+def wrapped(pairs):
+    """For the length of the block, each function of `module` named in
+    pairs ((module, names), ...) wrapped in a record_function span of its
+    name: regions of a path that the program marks with no span of its
+    own (framework/timers.py:span)."""
+    from torch.profiler import record_function
 
-    def spanned(region, f):
+    def spanned(name, fn):
         def call(*args, **kwargs):
-            with record_function(region):
-                return f(*args, **kwargs)
+            with record_function(name):
+                return fn(*args, **kwargs)
         return call
-    saved = [(n, getattr(module, n)) for n in regions]
-    torch.cuda.synchronize()
+    saved = [(mod, n, getattr(mod, n)) for mod, names in pairs
+             for n in names]
     try:
-        for n, f in saved:
-            setattr(module, n, spanned(n, f))
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            out = fn()
-            torch.cuda.synchronize()
+        for mod, n, fn in saved:
+            setattr(mod, n, spanned(n, fn))
+        yield
     finally:
-        for n, f in saved:
-            setattr(module, n, f)
-    regions = tuple(regions) + tuple(spans)
-    events = prof.key_averages()
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
+
+
+def kernels_and_spans(events):
+    """(kernels, {span: its host-side event}) of a profile's
+    key_averages(). A span, the program's own or one `wrapped` here, is a
+    user annotation on the host; a host event's device_time_total is the
+    device time of the kernels launched inside it, nested spans included.
+    The CUDA-side event of a span's name is its image on the device
+    timeline, first to last kernel with the gaps between: no kernel."""
+    from torch.autograd import DeviceType
+    spans = {e.key: e for e in events
+             if e.device_type == DeviceType.CPU and e.is_user_annotation}
     kern = [e for e in events if e.device_type == DeviceType.CUDA
-            and e.key not in regions]
-    census = (out, sum(e.count for e in kern),
-              sum(e.self_device_time_total for e in kern) / 1e3)
-    if not regions:
-        return census
-    return census + ({e.key: e.device_time_total / 1e3 for e in events
-                      if e.key in regions
-                      and e.device_type == DeviceType.CPU},)
+            and e.key not in spans]
+    return kern, spans
+
+
+def kernel_census(fn, wrap=()):
+    """(fn(), kernels, device busy ms, {span: device ms}) of one call of
+    fn under torch.profiler: every kernel the call launched, the sum of
+    their device times, and the device ms of the kernels each span
+    launched, with the functions of `wrap` (see wrapped) spanned for the
+    call."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with wrapped(wrap), profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    kern, spans = kernels_and_spans(prof.key_averages())
+    return (out, sum(e.count for e in kern),
+            sum(e.self_device_time_total for e in kern) / 1e3,
+            {k: e.device_time_total / 1e3 for k, e in spans.items()})
 
 
 def run_physics_path(device, card, name, scheme, pcfg, init_kw,
-                     cfg_kw=None, regions=None):
+                     cfg_kw=None, wrap=()):
     """Phase 5, supercell_2km (bench.py:104-119) with `scheme`
     microphysics and a physics suite (`pcfg`, None for PhysicsConfig())
     before every dynamics step, in float32, at MESOREF_GMT, through
@@ -1202,7 +1221,7 @@ def run_physics_path(device, card, name, scheme, pcfg, init_kw,
     after every step. Then one step under the profiler for the kernels and
     device busy ms a step. Gates: 12 K1 and K2_PER_STEP[name] K2 every
     step, finite fields, dry mass, species >= 0. cfg_kw goes to AtmConfig;
-    regions = (module, names): the profiled step also reports the device
+    wrap = ((module, names),): the profiled step also reports the device
     ms of each named function's kernels. Returns a dict of the run (cfg,
     grid, carry, phys, coeffs, pcfg, counts, step, ms, peak_gb)."""
     from mpas_tpu_torch import kernels
@@ -1301,13 +1320,13 @@ def run_physics_path(device, card, name, scheme, pcfg, init_kw,
           f"min glw after the warm step {glw_min:.3f} W/m2")
     require(drift <= 1e-5, f"{name}: dry mass not conserved: {drift:.3e}")
     require(float(sc[..., :6].min()) >= 0.0, f"{name}: a negative species")
-    census = kernel_census(lambda: step(carry, phys), *(regions or ()))
-    n_kern, busy = census[1:3]
+    _out, n_kern, busy, span_ms = kernel_census(lambda: step(carry, phys),
+                                                wrap)
     print(f"{name} one profiled step on {card}: {n_kern} kernels, device "
           f"busy {busy:.3f} ms ({100.0 * (1.0 - busy / ms):.1f}% idle "
           f"against the timed {ms:.2f} ms/step)"
-          + "".join(f"; {k} {v:.3f} ms" for k, v in
-                    (census[3].items() if regions else ())))
+          + "".join(f"; {k} {span_ms[k]:.3f} ms" for _, names in wrap
+                    for k in names if k in span_ms))
     return dict(cfg=cfg, grid=grid, carry=carry, phys=phys, coeffs=coeffs,
                 pcfg=pcfg, counts=counts, step=step, glw_min=glw_min, ms=ms,
                 peak_gb=peak_gb)
@@ -1341,7 +1360,7 @@ def run_cam_path(device, card):
     name = "supercell_2km_cam"
     run = run_physics_path(device, card, name, "mp_wsm6", cam_config(),
                            MESOREF_INIT, cfg_kw=SUPERCELL_DISSIPATION,
-                           regions=(cam_radiation, ("cam_lw", "cam_sw")))
+                           wrap=((cam_radiation, ("cam_lw", "cam_sw")),))
     carry, phys = run["carry"], run["phys"]
     cfg = run["cfg"]
     require((cfg.config_horiz_mixing, cfg.config_v_mom_eddy_visc2,
@@ -1444,7 +1463,7 @@ def run_kf_path(device, card):
     carry = run["carry"]
     args, kwargs = kf_eta_inputs(run["grid"], carry.state, carry.diag,
                                  run["coeffs"])
-    out, n_kern, busy = kernel_census(
+    out, n_kern, busy, _ = kernel_census(
         lambda: kfeta.kf_eta(*args, run["cfg"].config_dt, **kwargs))
     active = int((out["ainc"] > 0.0).sum())
     print(f"{name}: Kain-Fritsch active in {active} of "
@@ -2236,26 +2255,15 @@ def run_ocean_path(device, card):
 
 OCEAN_GLOBAL = "ocean_global_120km"
 OCEAN_GLOBAL_NZ = 60               # E3SM's global MPAS-Ocean meshes
-OCEAN_GLOBAL_PARTS = ("dynamics", "bgc", "analysis", "particles")
+# the program's spans of a step, each with the spans under its name
+OCEAN_GLOBAL_PARTS = ("ocn.timestep", "ocn.bgc", "ocn.analysis",
+                      "ocn.particles")
 
 
 def member_census(driver, grid, cfg, state, **kw):
-    """(host ms of driver.compute_all, {member: device ms}) of one call
-    (with `kw`: the ocean's forcing) under torch.profiler, each member's
-    compute in a record_function span (the driver's signature dispatch
-    kept through functools.wraps)."""
-    import functools
-
-    from torch.profiler import record_function
-    insts = driver._instances
-    saved = {n: inst.compute for n, inst in insts.items()}
-
-    def spanned(name, fn):
-        @functools.wraps(fn)
-        def call(*args, **kwargs):
-            with record_function(name):
-                return fn(*args, **kwargs)
-        return call
+    """(host ms of driver.compute_all, kernel_census of it) of one call
+    (with `kw`: the ocean's forcing), the census's spans cut to the
+    members' own (<core>.analysis.<member>) under the members' names."""
     host = []
 
     def run():
@@ -2263,14 +2271,13 @@ def member_census(driver, grid, cfg, state, **kw):
         driver.compute_all(grid, cfg, state, **kw)
         host.append(1e3 * (time.perf_counter() - t0))
     try:
-        for n, fn in saved.items():
-            insts[n].compute = spanned(n, fn)
-        census = kernel_census(run, spans=tuple(saved))
+        out, n_kern, busy, span_ms = kernel_census(run)
     finally:
-        for n in saved:
-            del insts[n].compute
+        for n in driver.history:
             driver.history[n].pop()
-    return host[0], census
+    return host[0], (out, n_kern, busy, {
+        k.split(".analysis.", 1)[1]: v for k, v in span_ms.items()
+        if ".analysis." in k})
 
 
 def run_ocean_global_path(device, card, mesh64, profile=None):
@@ -2390,15 +2397,17 @@ def run_ocean_global_path(device, card, mesh64, profile=None):
     require(u_max < og.MAX_U, f"{name}: max |u| {u_max}")
     require(all(in_ocean), f"{name}: a particle left the ocean")
 
-    parts = kernel_census(step, og, OCEAN_GLOBAL_PARTS)
-    n_kern, busy, part_ms = parts[1:]
+    _out, n_kern, busy, span_ms = kernel_census(step)
+    part_ms = {p: sum(v for k, v in span_ms.items()
+                      if k == p or k.startswith(p + "."))
+               for p in OCEAN_GLOBAL_PARTS}
+    part_ms["outside these spans"] = busy - sum(part_ms.values())
     idle = 100.0 * (1.0 - busy / ms)
     print(f"{name} one profiled step (analysis due) on {card}: {n_kern} "
           f"kernels, device busy {busy:.3f} ms ({idle:.1f}% idle against "
           f"the timed {ms:.2f} ms/step); "
-          + "; ".join(f"{k} {part_ms[k]:.3f} ms "
-                      f"({100.0 * part_ms[k] / busy:.1f}%)"
-                      for k in OCEAN_GLOBAL_PARTS))
+          + "; ".join(f"{k} {v:.3f} ms ({100.0 * v / busy:.1f}%)"
+                      for k, v in part_ms.items()))
     host_ms, census = member_census(driver, grid, cfg, box["state"],
                                     forcing=forcing)
     print(f"{name} analysis, all 19 members once: driver host "
@@ -2407,7 +2416,7 @@ def run_ocean_global_path(device, card, mesh64, profile=None):
                               sorted(census[3].items(),
                                      key=lambda kv: -kv[1])))
     if profile:
-        profile_steps(name, step, profile, og, OCEAN_GLOBAL_PARTS)
+        profile_steps(name, step, profile)
     check_ocean_global_f64(device, grid, cfg, box["state"], forcing)
     return counts
 
@@ -2633,8 +2642,8 @@ def run_seaice_path(name, device, card, mesh, mesh_s, profile=None):
         require(0.0 <= s_lo and s_hi <= 40.0, f"{name}: salinity "
                 f"[{s_lo}, {s_hi}]")
 
-    out, n_kern, busy, part_ms = kernel_census(lambda: step(state),
-                                               seaice_core, SEAICE_PARTS)
+    out, n_kern, busy, part_ms = kernel_census(
+        lambda: step(state), ((seaice_core, SEAICE_PARTS),))
     med = ms[len(ms) // 2]
     print(f"{name} one profiled step on {card}: {n_kern} kernels, device "
           f"busy {busy:.3f} ms ({100.0 * (1.0 - busy / med):.1f}% idle "
@@ -2647,7 +2656,8 @@ def run_seaice_path(name, device, card, mesh, mesh_s, profile=None):
 
         def profiled():
             box[0] = step(box[0])
-        profile_steps(name, profiled, profile, seaice_core, SEAICE_PARTS)
+        profile_steps(name, profiled, profile,
+                      ((seaice_core, SEAICE_PARTS),))
     if name == "seaice_box_10km":
         from mpas_tpu_torch.cores.seaice import analysis
         driver = analysis.SeaiceAnalysisDriver(
@@ -2948,8 +2958,7 @@ def run_sharded_jw_path(device, card, host, ref, profile=None):
                           lambda c: run1(grid_l, c, 2), grid.mesh)
     step = stepper(lambda c: run1(grid_l, c, 1), carry_l)
     if profile:
-        from mpas_tpu_torch.cores.atmosphere import time_integration as ti
-        profile_steps(name, step, profile, ti, PROFILE_REGIONS)
+        profile_steps(name, step, profile)
     return counts, grid_l.mesh.nCells, step
 
 
@@ -3042,61 +3051,27 @@ def run_sharded_ocean_path(device, card, host, ref, profile=None):
                                    grid.mesh), ref, SHARD_REL_F32, mixed=True)
     step = stepper(lambda s: run1(grid_l, s, 1), state_l)
     if profile:
-        from mpas_tpu_torch.cores.ocean import core as ocean_core
-        profile_steps(name, step, profile, ocean_core,
-                      ("split_step", "implicit_vertical_mix"))
+        profile_steps(name, step, profile)
     return counts, grid_l.mesh.nCells, step
 
 
-PROFILE_REGIONS = ("compute_dyn_tend", "acoustic_step", "solve_diagnostics",
-                   "recover_large_step_variables", "vert_imp_coefs",
-                   "set_smlstep_pert_variables", "advance_scalars",
-                   "advance_scalars_mono", "microphysics_step",
-                   "divergence_damping_3d", "acoustic_hoist",
-                   "reconstruct_cell_winds", "compute_moist_coefficients")
-
-
-def profile_steps(name, step, out_dir, module=None, regions=(), steps=3,
-                  more=()):
-    """--profile DIR: torch.profiler over `steps` calls of step(), with a
-    record_function span around each function of `module` named in
-    `regions`, and of each (module, names) pair in `more` (patched in for
-    the run and restored after). Prints device time and kernel count per
-    step, K1 and K2, and per region, and writes the per-kernel table to
+def profile_steps(name, step, out_dir, wrap=(), steps=3):
+    """--profile DIR: torch.profiler over `steps` calls of step(), with
+    the functions of `wrap` (see wrapped) spanned for the run. Prints
+    device time and kernel count per step, K1 and K2, and per span (the
+    program's own and the wrapped), and writes the per-kernel table to
     DIR/profile_<name>.txt."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    def spanned(region, fn):
-        def call(*args, **kwargs):
-            with record_function(region):
-                return fn(*args, **kwargs)
-        return call
-
-    pairs = ((module, tuple(regions)),) + tuple(more)
-    regions = tuple(n for _, names in pairs for n in names)
-    saved = [(mod, n, getattr(mod, n)) for mod, names in pairs
-             for n in names]
-    try:
-        for mod, n, fn in saved:
-            setattr(mod, n, spanned(n, fn))
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                step()
-            torch.cuda.synchronize()
-    finally:
-        for mod, n, fn in saved:
-            setattr(mod, n, fn)
-
-    # CUDA-side events named after a region are the record_function spans
-    # on the device timeline (first to last kernel, gaps included); the
-    # rest are kernels
+    from torch.profiler import ProfilerActivity, profile
+    with wrapped(wrap), profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
     events = prof.key_averages()
-    kern = [e for e in events if e.device_type == DeviceType.CUDA
-            and e.key not in regions]
-    span = {e.key: e.device_time_total for e in events
-            if e.device_type == DeviceType.CUDA and e.key in regions}
+    kern, spans = kernels_and_spans(events)
+    image = {e.key: e.device_time_total for e in events
+             if e.device_type == DeviceType.CUDA and e.key in spans}
     dev_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
     n_kern = sum(e.count for e in kern) / steps
     print(f"profile {name} ({steps} steps): device busy {dev_ms:.3f} "
@@ -3109,13 +3084,11 @@ def profile_steps(name, step, out_dir, module=None, regions=(), steps=3,
         print(f"  {label} {prefix[5:]}: {n / steps:.0f} launches/step, "
               f"{us / 1e3 / steps:.3f} ms/step, "
               f"{us / n if n else 0.0:.2f} us/launch in the path")
-    for e in sorted((e for e in events if e.key in regions
-                     and e.device_type == DeviceType.CPU),
-                    key=lambda e: -e.device_time_total):
-        print(f"  region {e.key}: {e.count / steps:.0f} calls/step, "
+    for e in sorted(spans.values(), key=lambda e: -e.device_time_total):
+        print(f"  span {e.key}: {e.count / steps:.0f} calls/step, "
               f"kernels {e.device_time_total / 1e3 / steps:.3f} ms/step, "
               f"device-timeline span "
-              f"{span.get(e.key, 0.0) / 1e3 / steps:.3f} ms/step")
+              f"{image.get(e.key, 0.0) / 1e3 / steps:.3f} ms/step")
     table = events.table(sort_by="self_device_time_total", row_limit=60)
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
@@ -3126,19 +3099,18 @@ def profile_steps(name, step, out_dir, module=None, regions=(), steps=3,
 
 
 def profile_srk3(name, cfg, grid, carry, out_dir):
-    """--profile of an atmosphere path, spans around the dycore calls."""
+    """--profile of an atmosphere path, by the dycore's own spans."""
     from mpas_tpu_torch.cores.atmosphere import time_integration as ti
     box = [carry]
 
     def step():
         box[0] = ti.srk3_step(grid, cfg, box[0], cfg.config_dt)
-    profile_steps(name, step, out_dir, ti, PROFILE_REGIONS)
+    profile_steps(name, step, out_dir)
 
 
 def profile_physics(name, run, out_dir):
-    """--profile of a suite path: spans around physics_step, its schemes,
-    the microphysics and the dycore calls; then physics_step alone."""
-    from mpas_tpu_torch.cores.atmosphere import time_integration as ti
+    """--profile of a suite path: spans around physics_step and its
+    schemes, and the dycore's own; then physics_step alone."""
     from mpas_tpu_torch.cores.atmosphere.physics import (
         cam_radiation, cldfra3, convection, driver, gf, gwdo, manager, mynn,
         mynn_sfc, radiation, rrtmg, sfclay, tiedtke, ysu)
@@ -3158,17 +3130,14 @@ def profile_physics(name, run, out_dir):
             (radiation, ("radiation_lw", "radiation_sw")),
             (sfclay, ("sfclay",)), (ysu, ("ysu",)),
             (convection, ("kf_eta",)))}[name]
-    micro = ("microphysics_step_thompson",) \
-        if run["cfg"].config_microp_scheme == "mp_thompson" \
-        else ("microphysics_step_wsm6",)
     cfg, grid, coeffs, pcfg = (run[k] for k in ("cfg", "grid", "coeffs",
                                                 "pcfg"))
     box = [(run["carry"], run["phys"])]
 
     def step():
         box[0] = run["step"](*box[0])
-    profile_steps(name, step, out_dir, ti, PROFILE_REGIONS + micro,
-                  more=((manager, ("physics_step",)),) + schemes)
+    wrap = ((manager, ("physics_step",)),) + schemes
+    profile_steps(name, step, out_dir, wrap)
 
     def physics_only():
         c, p = box[0]
@@ -3177,8 +3146,7 @@ def profile_physics(name, run, out_dir):
                              cfg.config_dt, gmt_hours=MESOREF_GMT)
     # physics_step alone: its kernels a step (the count a CUDA graph of it
     # would replay)
-    profile_steps(f"{name}_physics_step", physics_only, out_dir, manager,
-                  ("physics_step",), more=schemes)
+    profile_steps(f"{name}_physics_step", physics_only, out_dir, wrap)
 
 
 # --- phase 6: the command line (python -m mpas_tpu_torch), in-process ---
@@ -3833,11 +3801,8 @@ def run_landice_path(name, device, card, mesh, mesh_s, profile=None):
     reference's fo_velocity copies the lowest layer's velocity to the bed:
     ROADMAP §3), water pressure in [0, overburden], effective pressure
     >= 0. Then one profiled step (kernels, device busy, the shares of
-    velocity, advection, thermal, calving, hydrology and stats), and on
-    the FO path the CG residual after each Picard pass of the last timed
-    step."""
-    from torch.profiler import record_function
-
+    the step's li.* spans, ld.PARTS), and on the FO path the CG residual
+    after each Picard pass of the last timed step."""
     from mpas_tpu_torch import kernels
     from mpas_tpu_torch.cores.landice.config import SECONDS_PER_YEAR
     from mpas_tpu_torch.cores.landice.core import total_volume
@@ -3940,9 +3905,8 @@ def run_landice_path(name, device, card, mesh, mesh_s, profile=None):
     box = [state, hydro]
 
     def one_step():
-        box[0], box[1], _ = ld.step(grid, cfg, box[0], box[1],
-                                    span=record_function)
-    _out, n_kern, busy, part_ms = kernel_census(one_step, spans=ld.PARTS)
+        box[0], box[1], _ = ld.step(grid, cfg, box[0], box[1])
+    _out, n_kern, busy, part_ms = kernel_census(one_step)
     print(f"{name} one profiled step on {card}: {n_kern} kernels, device "
           f"busy {busy:.3f} ms ({100.0 * (1.0 - busy / med):.1f}% idle "
           f"against the median {med:.2f} ms/step); "
@@ -4051,7 +4015,6 @@ def gather_census(fn):
     call of fn under torch.profiler: the gathers are the advanced-indexing
     and gather kernels (index_elementwise, indexSelect, gather), scatters
     (index_put, indexFunc of index_add, scatter) excluded."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -4060,9 +4023,7 @@ def gather_census(fn):
         torch.cuda.synchronize()
     busy = gather_ms = 0.0
     n_gather = 0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
+    for e in kernels_and_spans(prof.key_averages())[0]:
         busy += e.self_device_time_total / 1e3
         key = e.key.lower()
         if (("index" in key or "gather" in key) and "put" not in key
@@ -4296,8 +4257,8 @@ def main():
 
         def sw_step():
             box[0] = sw_ti.rk4_step(mesh, cfg, box[0], h_s, cfg.config_dt)
-        profile_steps("sw_tc5_120km", sw_step, args.profile, sw_ti,
-                      ("stage_tendencies",))
+        profile_steps("sw_tc5_120km", sw_step, args.profile,
+                      ((sw_ti, ("stage_tendencies",)),))
     # phase 6's mesh cache: the command line's icos:64 is this mesh
     from mpas_tpu_torch.mesh.cache import save_mesh
     cli_cache = tempfile.TemporaryDirectory(prefix="mesh_cache")
@@ -4341,8 +4302,7 @@ def main():
         def ocean_step():
             box[0] = ocean_core.ocn_timestep(grid, cfg, box[0],
                                              cfg.config_dt)
-        profile_steps("ocean_channel_10km", ocean_step, args.profile,
-                      ocean_core, ("split_step", "implicit_vertical_mix"))
+        profile_steps("ocean_channel_10km", ocean_step, args.profile)
     ocean_ref = {k: getattr(state, k).cpu().numpy() for k, _ in OCN_FIELDS}
     counts["ocean_channel_10km_4way"], flat_nc, ocean4_step = timed(
         "ocean_channel_10km_4way", run_sharded_ocean_path, device, card,

@@ -33,6 +33,7 @@ from mpas_tpu_torch.cores.atmosphere.advection import (
     advective_tendencies_cell)
 from mpas_tpu_torch.cores.atmosphere.config import AtmConfig
 from mpas_tpu_torch.cores.atmosphere.setup import AtmGrid
+from mpas_tpu_torch.framework.timers import span, spanned
 from mpas_tpu_torch.kernels.acoustic import acoustic_cell_update
 from mpas_tpu_torch.ops.stencils import (tangential_cell_assembled,
                                          trisk_q_cell_assembled)
@@ -205,6 +206,7 @@ def compute_moist_coefficients(grid: AtmGrid, scalars):
     return qtot, cqw, cqu
 
 
+@spanned("atm.dyn_tend")
 def compute_dyn_tend(grid: AtmGrid, cfg: AtmConfig, rk_step: int, dt,
                      u, w, theta_m, rho_zz, diag: AtmSolveDiag,
                      ru, rw, ru_save, rw_save, theta_m_save, rho_p_save,
@@ -243,7 +245,7 @@ def compute_dyn_tend(grid: AtmGrid, cfg: AtmConfig, rk_step: int, dt,
             dpdz = -gravity * rho_p_save      # dry: qtot=0 (ref :4763)
         else:
             dpdz = -gravity * (grid.rho_base * qtot
-                               + rho_p_save * (1.0 + qtot))   # (ref :4763)
+                               + rho_p_save * (1.0 + qtot))  # (ref :4763)
         if smag:
             kdiff = smagorinsky_kdiff(grid, cfg, u, diag.v, dt)
         else:
@@ -255,88 +257,98 @@ def compute_dyn_tend(grid: AtmGrid, cfg: AtmConfig, rk_step: int, dt,
         kdiff = euler.kdiff
 
     # --- u tendency (ref :4770-4830) ----------------------------------------
-    rw_edge = 0.5 * (rw[c1] + rw[c2])                     # (nE, nz+1)
-    wduz = flux3_vertical(u, rw_edge, fzm, fzp, 1.0)
-    tend_u = -rdzw * (wduz[:, 1:] - wduz[:, :-1])
-    # nonlinear Coriolis q (no h_edge factor, ref :4803-4813)
-    q = trisk_q_cell_assembled(mesh, u, diag.pv_edge)
-    dke = (diag.ke[c2] - diag.ke[c1]) * r_dc
-    hdivu = u * 0.5 * (h_divergence[c1] + h_divergence[c2])
-    tend_u = tend_u + diag.rho_edge * (q - dke) - hdivu
+    with span("atm.dyn_tend.u"):
+        rw_edge = 0.5 * (rw[c1] + rw[c2])                 # (nE, nz+1)
+        wduz = flux3_vertical(u, rw_edge, fzm, fzp, 1.0)
+        tend_u = -rdzw * (wduz[:, 1:] - wduz[:, :-1])
+        # nonlinear Coriolis q (no h_edge factor, ref :4803-4813)
+        q = trisk_q_cell_assembled(mesh, u, diag.pv_edge)
+        dke = (diag.ke[c2] - diag.ke[c1]) * r_dc
+        hdivu = u * 0.5 * (h_divergence[c1] + h_divergence[c2])
+        tend_u = tend_u + diag.rho_edge * (q - dke) - hdivu
 
-    if mesh.on_sphere:  # curvature terms (ref :4815-4823)
-        w_mid = 0.5 * (w[:, :-1] + w[:, 1:])
-        w4 = 0.5 * (w_mid[c1] + w_mid[c2])
-        tend_u = tend_u - 2.0 * omega \
-            * torch.cos(mesh.angleEdge)[:, None] \
-            * torch.cos(mesh.latEdge)[:, None] * diag.rho_edge * w4 \
-            - u * w4 * diag.rho_edge * inv_r_earth
+        if mesh.on_sphere:  # curvature terms (ref :4815-4823)
+            w_mid = 0.5 * (w[:, :-1] + w[:, 1:])
+            w4 = 0.5 * (w_mid[c1] + w_mid[c2])
+            tend_u = tend_u - 2.0 * omega \
+                * torch.cos(mesh.angleEdge)[:, None] \
+                * torch.cos(mesh.latEdge)[:, None] * diag.rho_edge \
+                * w4 - u * w4 * diag.rho_edge * inv_r_earth
 
     # --- u/w/theta mixing (rk 1 only; ref :4836-4975, :5094-5160,
     #     :5272-5310) ---------------------------------------------------------
     if rk_step == 1:
-        zz_edge = 0.5 * (grid.zz[c1] + grid.zz[c2])
-        tend_u_euler = -((pressure_p[c2] - pressure_p[c1]) * r_dc / zz_edge
-                         - 0.5 * grid.zxu * (dpdz[c1] + dpdz[c2]))
-        if cqu is not None:
-            tend_u_euler = cqu * tend_u_euler
+        with span("atm.dyn_tend.mixing"):
+            zz_edge = 0.5 * (grid.zz[c1] + grid.zz[c2])
+            tend_u_euler = -((pressure_p[c2] - pressure_p[c1]) * r_dc
+                             / zz_edge
+                             - 0.5 * grid.zxu * (dpdz[c1] + dpdz[c2]))
+            if cqu is not None:
+                tend_u_euler = cqu * tend_u_euler
 
-        r_dv = torch.minimum(mesh.invDvEdge, 4.0 * mesh.invDcEdge)[:, None]
-        delsq_u = (diag.divergence[c2] - diag.divergence[c1]) * r_dc \
-            - (diag.vorticity[v2] - diag.vorticity[v1]) * r_dv
-        kdiffu = 0.5 * (kdiff[c1] + kdiff[c2])
-        tend_u_euler = tend_u_euler + diag.rho_edge * kdiffu * delsq_u \
-            * mesh.meshScalingDel2[:, None]
+            r_dv = torch.minimum(mesh.invDvEdge,
+                                 4.0 * mesh.invDcEdge)[:, None]
+            delsq_u = (diag.divergence[c2] - diag.divergence[c1]) * r_dc \
+                - (diag.vorticity[v2] - diag.vorticity[v1]) * r_dv
+            kdiffu = 0.5 * (kdiff[c1] + kdiff[c2])
+            tend_u_euler = tend_u_euler + diag.rho_edge * kdiffu \
+                * delsq_u * mesh.meshScalingDel2[:, None]
 
-        rho_edge_int = F.pad(diag.rho_edge[:, 1:] + diag.rho_edge[:, :-1],
-                             (1, 1))                      # (nE, nz+1)
-        dvdc = (mesh.dvEdge * mesh.invDcEdge)[:, None]
-        wflux = 0.5 * dvdc * rho_edge_int * (w[c2] - w[c1])
-        kd4 = F.pad(kdiff[:, 1:] + kdiff[:, :-1], (1, 1))  # (nC, nz+1)
-        kdiff_int_e = 0.25 * (kd4[c1] + kd4[c2])
-        wflux_mix = wflux * mesh.meshScalingDel2[:, None] * kdiff_int_e
-        dth = (theta_m[c2] - theta_m[c1]) * dvdc * diag.rho_edge
-        mixth = dth * kdiffu * mesh.meshScalingDel2[:, None]  # prandtl = 1
-        sgn = mesh.edgeSignOnCell
-        delsq_w = _slot_sum(eoc, sgn, wflux) * inva
-        tend_w_euler = _slot_sum(eoc, sgn, wflux_mix) * inva
-        delsq_theta = _slot_sum(eoc, sgn, dth) * inva
-        tend_theta_euler = _slot_sum(eoc, sgn, mixth) * inva
-        w_d4 = sgn * mesh.meshScalingDel4[eoc]
+            rho_edge_int = F.pad(diag.rho_edge[:, 1:]
+                                 + diag.rho_edge[:, :-1],
+                                 (1, 1))                  # (nE, nz+1)
+            dvdc = (mesh.dvEdge * mesh.invDcEdge)[:, None]
+            wflux = 0.5 * dvdc * rho_edge_int * (w[c2] - w[c1])
+            kd4 = F.pad(kdiff[:, 1:] + kdiff[:, :-1],
+                        (1, 1))                           # (nC, nz+1)
+            kdiff_int_e = 0.25 * (kd4[c1] + kd4[c2])
+            wflux_mix = wflux * mesh.meshScalingDel2[:, None] \
+                * kdiff_int_e
+            dth = (theta_m[c2] - theta_m[c1]) * dvdc * diag.rho_edge
+            # prandtl = 1
+            mixth = dth * kdiffu * mesh.meshScalingDel2[:, None]
+            sgn = mesh.edgeSignOnCell
+            delsq_w = _slot_sum(eoc, sgn, wflux) * inva
+            tend_w_euler = _slot_sum(eoc, sgn, wflux_mix) * inva
+            delsq_theta = _slot_sum(eoc, sgn, dth) * inva
+            tend_theta_euler = _slot_sum(eoc, sgn, mixth) * inva
+            w_d4 = sgn * mesh.meshScalingDel4[eoc]
 
-        if h_mom_visc4 > 0.0:
-            # u del4 (ref :4884-4947)
-            delsq_div = _slot_sum(eoc, mesh.divW, delsq_u) * inva
-            delsq_vort = _slot_sum(mesh.edgesOnVertex, mesh.curlW,
-                                   delsq_u) * mesh.invAreaTriangle[:, None]
-            ms4 = mesh.meshScalingDel4[:, None] * h_mom_visc4
-            u_diff4 = diag.rho_edge * (
-                (delsq_div[c2] - delsq_div[c1]) * r_dc
-                * cfg.config_del4u_div_factor
-                - (delsq_vort[v2] - delsq_vort[v1]) * r_dv) * ms4
-            tend_u_euler = tend_u_euler - u_diff4
-            # w del4 (ref :5094-5160)
-            dsw = (delsq_w[c2] - delsq_w[c1]) * dvdc
-            tend_w_euler = tend_w_euler - h_mom_visc4 \
-                * _slot_sum(eoc, w_d4, dsw) * inva
-        tend_w_euler[:, 0] = 0.0
-        tend_w_euler[:, nz] = 0.0
-        if cfg.config_v_mom_eddy_visc2 > 0.0:
-            # vertical u mixing (ref :4950)
-            zgrid_e = 0.5 * (grid.zgrid[c1] + grid.zgrid[c2])  # (nE, nz+1)
-            tend_u_euler = tend_u_euler + diag.rho_edge \
-                * cfg.config_v_mom_eddy_visc2 * _vertical_laplacian(
-                    u, zgrid_e)
-        if h_theta_visc4 > 0.0:
-            # theta del4 (ref :5272-5310)
-            dst = (delsq_theta[c2] - delsq_theta[c1]) * dvdc
-            tend_theta_euler = tend_theta_euler - h_theta_visc4 \
-                * _slot_sum(eoc, w_d4, dst) * inva
-        if cfg.config_v_theta_eddy_visc2 > 0.0:
-            # vertical theta mixing (ref :5342-5381)
-            tend_theta_euler = tend_theta_euler \
-                + cfg.config_v_theta_eddy_visc2 * rho_zz \
-                * _vertical_laplacian(theta_m, grid.zgrid)
+            if h_mom_visc4 > 0.0:
+                # u del4 (ref :4884-4947)
+                delsq_div = _slot_sum(eoc, mesh.divW, delsq_u) * inva
+                delsq_vort = _slot_sum(
+                    mesh.edgesOnVertex, mesh.curlW,
+                    delsq_u) * mesh.invAreaTriangle[:, None]
+                ms4 = mesh.meshScalingDel4[:, None] * h_mom_visc4
+                u_diff4 = diag.rho_edge * (
+                    (delsq_div[c2] - delsq_div[c1]) * r_dc
+                    * cfg.config_del4u_div_factor
+                    - (delsq_vort[v2] - delsq_vort[v1]) * r_dv) * ms4
+                tend_u_euler = tend_u_euler - u_diff4
+                # w del4 (ref :5094-5160)
+                dsw = (delsq_w[c2] - delsq_w[c1]) * dvdc
+                tend_w_euler = tend_w_euler - h_mom_visc4 \
+                    * _slot_sum(eoc, w_d4, dsw) * inva
+            tend_w_euler[:, 0] = 0.0
+            tend_w_euler[:, nz] = 0.0
+            if cfg.config_v_mom_eddy_visc2 > 0.0:
+                # vertical u mixing (ref :4950)
+                # (nE, nz+1)
+                zgrid_e = 0.5 * (grid.zgrid[c1] + grid.zgrid[c2])
+                tend_u_euler = tend_u_euler + diag.rho_edge \
+                    * cfg.config_v_mom_eddy_visc2 * _vertical_laplacian(
+                        u, zgrid_e)
+            if h_theta_visc4 > 0.0:
+                # theta del4 (ref :5272-5310)
+                dst = (delsq_theta[c2] - delsq_theta[c1]) * dvdc
+                tend_theta_euler = tend_theta_euler - h_theta_visc4 \
+                    * _slot_sum(eoc, w_d4, dst) * inva
+            if cfg.config_v_theta_eddy_visc2 > 0.0:
+                # vertical theta mixing (ref :5342-5381)
+                tend_theta_euler = tend_theta_euler \
+                    + cfg.config_v_theta_eddy_visc2 * rho_zz \
+                    * _vertical_laplacian(theta_m, grid.zgrid)
     else:
         tend_u_euler = euler.tend_u_euler
         tend_w_euler = euler.tend_w_euler
@@ -354,88 +366,101 @@ def compute_dyn_tend(grid: AtmGrid, cfg: AtmConfig, rk_step: int, dt,
     tend_u = tend_u + tend_u_euler
 
     # --- w tendency (ref :5017-5233) ----------------------------------------
-    # horizontal advection of w and theta in one cell-assembled pass
-    ru_int = to_interface(ru, fzm, fzp)                  # (nE, nz+1)
-    tend_w, tend_theta_adv = advective_tendencies_cell(
-        grid, [(w, ru_int), (theta_m, ru)])
+    with span("atm.dyn_tend.w"):
+        # horizontal advection of w and theta in one cell-assembled pass
+        ru_int = to_interface(ru, fzm, fzp)               # (nE, nz+1)
+        tend_w, tend_theta_adv = advective_tendencies_cell(
+            grid, [(w, ru_int), (theta_m, ru)])
 
-    if mesh.on_sphere:  # curvature for w (ref :5074-5086)
-        rho_int = to_interface(rho_zz, fzm, fzp)
-        ur_int = to_interface(ur_cell, fzm, fzp)
-        vr_int = to_interface(vr_cell, fzm, fzp)
-        curv_w = rho_int * (ur_int ** 2 + vr_int ** 2) * inv_r_earth \
-            + 2.0 * omega * torch.cos(mesh.latCell)[:, None] * ur_int \
-            * rho_int
-        # config_w_curvature="physical" (default) applies the pair at full
-        # size after the invAreaCell scaling; "reference" adds it before,
-        # as the Fortran does, which divides it by the cell area (see the
-        # reference package's nhyd.compute_dyn_tend)
-    else:
-        curv_w = None
+        if mesh.on_sphere:  # curvature for w (ref :5074-5086)
+            rho_int = to_interface(rho_zz, fzm, fzp)
+            ur_int = to_interface(ur_cell, fzm, fzp)
+            vr_int = to_interface(vr_cell, fzm, fzp)
+            curv_w = rho_int * (ur_int ** 2 + vr_int ** 2) \
+                * inv_r_earth \
+                + 2.0 * omega * torch.cos(mesh.latCell)[:, None] \
+                * ur_int * rho_int
+            # config_w_curvature="physical" (default) applies the pair
+            # at full size after the invAreaCell scaling; "reference"
+            # adds it before, as the Fortran does, which divides it by
+            # the cell area (see the reference package's
+            # nhyd.compute_dyn_tend)
+        else:
+            curv_w = None
 
-    # vertical advection of w (ref :5163-5177); wdwz lives at levels j=0..nz
-    rw_lev = 0.5 * (rw[:, 1:] + rw[:, :-1])
-    second_b = 0.25 * (rw[:, 1:2] + rw[:, 0:1]) * (w[:, 1:2] + w[:, 0:1])
-    second_t = 0.25 * (rw[:, nz - 1:nz] + rw[:, nz - 2:nz - 1]) \
-        * (w[:, nz - 1:nz] + w[:, nz - 2:nz - 1])
-    qm2 = w[:, 0:nz - 3]
-    qm1 = w[:, 1:nz - 2]
-    qi = w[:, 2:nz - 1]
-    qp1 = w[:, 3:nz]
-    m = rw_lev[:, 1:nz - 2]
-    f4 = m * (7.0 * (qi + qm1) - (qp1 + qm2)) / 12.0
-    f3 = f4 + 1.0 * torch.abs(m) * ((qp1 - qm2) - 3.0 * (qi - qm1)) / 12.0
-    wdwz = F.pad(torch.cat([second_b, f3, second_t], dim=-1), (1, 1))
-    if curv_w is not None and cfg.config_w_curvature == "reference":
-        tend_w = tend_w + curv_w
-    tend_w = tend_w * inva
-    if curv_w is not None and cfg.config_w_curvature != "reference":
-        tend_w = tend_w + curv_w
-    vert = rdzu[1:nz] * (wdwz[:, 2:nz + 1] - wdwz[:, 1:nz])
-    tend_w = _add_interior(tend_w, -vert)
-    tend_w[:, 0] = 0.0
-    tend_w[:, nz] = 0.0
+        # vertical advection of w (ref :5163-5177); wdwz lives at
+        # levels j=0..nz
+        rw_lev = 0.5 * (rw[:, 1:] + rw[:, :-1])
+        second_b = 0.25 * (rw[:, 1:2] + rw[:, 0:1]) \
+            * (w[:, 1:2] + w[:, 0:1])
+        second_t = 0.25 * (rw[:, nz - 1:nz] + rw[:, nz - 2:nz - 1]) \
+            * (w[:, nz - 1:nz] + w[:, nz - 2:nz - 1])
+        qm2 = w[:, 0:nz - 3]
+        qm1 = w[:, 1:nz - 2]
+        qi = w[:, 2:nz - 1]
+        qp1 = w[:, 3:nz]
+        m = rw_lev[:, 1:nz - 2]
+        f4 = m * (7.0 * (qi + qm1) - (qp1 + qm2)) / 12.0
+        f3 = f4 + 1.0 * torch.abs(m) \
+            * ((qp1 - qm2) - 3.0 * (qi - qm1)) / 12.0
+        wdwz = F.pad(torch.cat([second_b, f3, second_t], dim=-1), (1, 1))
+        if curv_w is not None and cfg.config_w_curvature == "reference":
+            tend_w = tend_w + curv_w
+        tend_w = tend_w * inva
+        if curv_w is not None and cfg.config_w_curvature != "reference":
+            tend_w = tend_w + curv_w
+        vert = rdzu[1:nz] * (wdwz[:, 2:nz + 1] - wdwz[:, 1:nz])
+        tend_w = _add_interior(tend_w, -vert)
+        tend_w[:, 0] = 0.0
+        tend_w[:, nz] = 0.0
 
-    if rk_step == 1:
-        dpdz_int = to_interface(dpdz, fzm, fzp)
-        pgrad = F.pad((pressure_p[:, 1:] - pressure_p[:, :-1]) * rdzu[1:nz],
-                      (1, 1))
-        pgrad = pgrad - dpdz_int
-        if cqw is not None:
-            pgrad = cqw * pgrad
-        tend_w_euler = tend_w_euler - pgrad
-        tend_w_euler[:, 0] = 0.0
-        tend_w_euler[:, nz] = 0.0
-        if cfg.config_v_mom_eddy_visc2 > 0.0:  # (ref :5212-5222)
-            lap = F.pad((w[:, 2:] - w[:, 1:-1]) * rdzw[1:]
-                        - (w[:, 1:-1] - w[:, :-2]) * rdzw[:-1], (1, 1)) * rdzu
-            rho_pair = F.pad(0.5 * (rho_zz[:, 1:] + rho_zz[:, :-1]), (1, 1))
-            tend_w_euler = tend_w_euler + cfg.config_v_mom_eddy_visc2 \
-                * rho_pair * lap
+        if rk_step == 1:
+            dpdz_int = to_interface(dpdz, fzm, fzp)
+            pgrad = F.pad((pressure_p[:, 1:] - pressure_p[:, :-1])
+                          * rdzu[1:nz], (1, 1))
+            pgrad = pgrad - dpdz_int
+            if cqw is not None:
+                pgrad = cqw * pgrad
+            tend_w_euler = tend_w_euler - pgrad
+            tend_w_euler[:, 0] = 0.0
+            tend_w_euler[:, nz] = 0.0
+            if cfg.config_v_mom_eddy_visc2 > 0.0:  # (ref :5212-5222)
+                lap = F.pad((w[:, 2:] - w[:, 1:-1]) * rdzw[1:]
+                            - (w[:, 1:-1] - w[:, :-2]) * rdzw[:-1],
+                            (1, 1)) * rdzu
+                rho_pair = F.pad(0.5 * (rho_zz[:, 1:] + rho_zz[:, :-1]),
+                                 (1, 1))
+                tend_w_euler = tend_w_euler \
+                    + cfg.config_v_mom_eddy_visc2 * rho_pair * lap
 
-    tend_w = tend_w + tend_w_euler
+        tend_w = tend_w + tend_w_euler
 
     # --- theta tendency (ref :5239-5410) ------------------------------------
-    tend_theta = tend_theta_adv
-    if rk_step > 1:  # perturbation-flux pickup (ref :5252-5266)
-        th_save_edge = 0.5 * (theta_m_save[c1] + theta_m_save[c2])
-        pf_e = mesh.dvEdge[:, None] * (ru_save - ru) * th_save_edge
-        tend_theta = tend_theta - _slot_sum(eoc, mesh.edgeSignOnCell, pf_e)
+    with span("atm.dyn_tend.theta"):
+        tend_theta = tend_theta_adv
+        if rk_step > 1:  # perturbation-flux pickup (ref :5252-5266)
+            th_save_edge = 0.5 * (theta_m_save[c1] + theta_m_save[c2])
+            pf_e = mesh.dvEdge[:, None] * (ru_save - ru) * th_save_edge
+            tend_theta = tend_theta - _slot_sum(eoc, mesh.edgeSignOnCell,
+                                                pf_e)
 
-    # vertical advection of theta with the rtheta_pp redefinition
-    # (ref :5316-5336); the top interior interface uses rw_save only
-    th_save_int = to_interface(theta_m_save, fzm, fzp)
-    wdtz = flux3_vertical(theta_m, rw, fzm, fzp, cfg.config_coef_3rd_order)
-    th_int = to_interface(theta_m, fzm, fzp)
-    wdtz = wdtz + (rw_save - rw) * th_save_int
-    wdtz[:, nz - 1] = rw_save[:, nz - 1] * th_int[:, nz - 1]
+        # vertical advection of theta with the rtheta_pp redefinition
+        # (ref :5316-5336); the top interior interface uses rw_save only
+        th_save_int = to_interface(theta_m_save, fzm, fzp)
+        wdtz = flux3_vertical(theta_m, rw, fzm, fzp,
+                              cfg.config_coef_3rd_order)
+        th_int = to_interface(theta_m, fzm, fzp)
+        wdtz = wdtz + (rw_save - rw) * th_save_int
+        wdtz[:, nz - 1] = rw_save[:, nz - 1] * th_int[:, nz - 1]
 
-    tend_theta = tend_theta * inva - rdzw * (wdtz[:, 1:] - wdtz[:, :-1])
-    tend_theta = tend_theta + tend_theta_euler
-    if rt_diabatic_tend is not None:
-        # physics heating applied during the RK stages, removed again by
-        # recover_large_step_variables at rk_step 3 (ref :5352, :3025)
-        tend_theta = tend_theta + rho_zz * rt_diabatic_tend
+        tend_theta = tend_theta * inva \
+            - rdzw * (wdtz[:, 1:] - wdtz[:, :-1])
+        tend_theta = tend_theta + tend_theta_euler
+        if rt_diabatic_tend is not None:
+            # physics heating applied during the RK stages, removed
+            # again by recover_large_step_variables at rk_step 3 (ref
+            # :5352, :3025)
+            tend_theta = tend_theta + rho_zz * rt_diabatic_tend
 
     new_euler = EulerTends(tend_u_euler=tend_u_euler,
                            tend_w_euler=tend_w_euler,

@@ -36,6 +36,7 @@ from mpas_tpu_torch.cores.atmosphere.setup import AtmGrid
 from mpas_tpu_torch.cores.atmosphere.state import AtmDiag, AtmState
 from mpas_tpu_torch.cores.atmosphere.transport import (advance_scalars,
                                                        advance_scalars_mono)
+from mpas_tpu_torch.framework.timers import span, spanned
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,6 +112,7 @@ def _check_supported(cfg: AtmConfig, state: AtmState):
             f"got {nsc} scalar(s)")
 
 
+@spanned("atm.srk3_step")
 def srk3_step(grid: AtmGrid, cfg: AtmConfig, carry: AtmCarry, dt,
               xch=None) -> AtmCarry:
     """One full timestep (ref: atm_srk3 :142-1796). xch: exchange hooks
@@ -174,69 +176,80 @@ def srk3_step(grid: AtmGrid, cfg: AtmConfig, carry: AtmCarry, dt,
         rtheta_p_save, rho_p_save = rtheta_p, rho_p
         th_save = th1
 
-        coefs = vert_imp_coefs(grid, cfg, rk_sub[0], th2, exner, rtheta_p,
-                               qtot, cqw)
-        hoist = acoustic_hoist(grid, th_save, exner, cqu)
+        with span("atm.vert_imp_coefs"):
+            coefs = vert_imp_coefs(grid, cfg, rk_sub[0], th2, exner,
+                                   rtheta_p, qtot, cqw)
+        with span("atm.vert_imp_coefs"):
+            hoist = acoustic_hoist(grid, th_save, exner, cqu)
         euler = None
         for rk in (1, 2, 3):
             if order == 3 and rk == 2:
-                coefs = vert_imp_coefs(grid, cfg, rk_sub[1], th2, exner,
-                                       rtheta_p, qtot, cqw)
+                with span("atm.vert_imp_coefs"):
+                    coefs = vert_imp_coefs(grid, cfg, rk_sub[1], th2,
+                                           exner, rtheta_p, qtot, cqw)
             (tend_u, tend_rho, tend_theta, tend_w_raw, _,
              euler) = compute_dyn_tend(
                 grid, cfg, rk, dt, u2, w2, th2, rho2, sd, ru, rw,
                 ru_save, rw_save, th_save, rho_p_save, pressure_p,
                 ur_cell, vr_cell, euler, cqu=cqu, cqw=cqw, qtot=qtot,
                 rt_diabatic_tend=rt_diab)
-            # ref: tend_u layer-1-only halo exchange before the omega
-            # conversion (:642)
-            tend_u = xch.edge(tend_u, depth=1)
-            tend_rw = set_smlstep_pert_variables(grid, tend_u, tend_w_raw)
+            with span("atm.acoustic"):
+                # ref: tend_u layer-1-only halo exchange before the
+                # omega conversion (:642)
+                tend_u = xch.edge(tend_u, depth=1)
+                tend_rw = set_smlstep_pert_variables(grid, tend_u,
+                                                     tend_w_raw)
 
-            zero_e = torch.zeros_like(ru)
-            zero_c = torch.zeros_like(rho2)
-            zero_i = torch.zeros_like(rw)
-            av = AcousticVars(ru_p=zero_e, rho_pp=zero_c, rtheta_pp=zero_c,
-                              rtheta_pp_old=zero_c, rw_p=zero_i,
-                              ruAvg=zero_e, wwAvg=zero_i)
-            # damp=True folds the previous iteration's divergence damping
-            # into this iteration (a no-op on the zero entry state); the
-            # last iteration's damping follows the loop. The reference's
-            # layer-1 rtheta_pp and rho_pp exchanges (:792, :845) fire as
-            # each field is produced.
-            for _ in range(nsub[rk - 1]):
-                av = acoustic_step(
-                    grid, cfg, coefs, av, rk_sub[rk - 1],
-                    th_save, exner, w2, rho2, rw, rw_save, ru, ru_save,
-                    tend_u, tend_rho, tend_theta, tend_rw,
-                    hoist=hoist, damp=True,
-                    xch_rtheta=lambda x: xch.cell(x, depth=1))
-                av = av._replace(rho_pp=xch.cell(av.rho_pp, depth=1))
-            av = divergence_damping_3d(grid, cfg, av, rk_sub[rk - 1],
-                                       th_save, th_sum=hoist.th_sum)
-            # ref: rw_p/ru_p/rho_pp/rtheta_pp exchanged two layers deep
-            # before the recovery (:873-887); ruAvg/wwAvg full depth for
-            # the transport
-            av = av._replace(rw_p=xch.cell(av.rw_p, depth=2),
-                             ru_p=xch.edge(av.ru_p, depth=2),
-                             rho_pp=xch.cell(av.rho_pp, depth=2),
-                             rtheta_pp=xch.cell(av.rtheta_pp, depth=2),
-                             ruAvg=xch.edge(av.ruAvg),
-                             wwAvg=xch.cell(av.wwAvg))
+                zero_e = torch.zeros_like(ru)
+                zero_c = torch.zeros_like(rho2)
+                zero_i = torch.zeros_like(rw)
+                av = AcousticVars(ru_p=zero_e, rho_pp=zero_c,
+                                  rtheta_pp=zero_c, rtheta_pp_old=zero_c,
+                                  rw_p=zero_i, ruAvg=zero_e, wwAvg=zero_i)
+                # damp=True folds the previous iteration's divergence
+                # damping into this iteration (a no-op on the zero
+                # entry state); the last iteration's damping follows
+                # the loop. The reference's layer-1 rtheta_pp and
+                # rho_pp exchanges (:792, :845) fire as each field is
+                # produced.
+                for _ in range(nsub[rk - 1]):
+                    av = acoustic_step(
+                        grid, cfg, coefs, av, rk_sub[rk - 1],
+                        th_save, exner, w2, rho2, rw, rw_save, ru,
+                        ru_save, tend_u, tend_rho, tend_theta, tend_rw,
+                        hoist=hoist, damp=True,
+                        xch_rtheta=lambda x: xch.cell(x, depth=1))
+                    av = av._replace(rho_pp=xch.cell(av.rho_pp, depth=1))
+                av = divergence_damping_3d(grid, cfg, av, rk_sub[rk - 1],
+                                           th_save, th_sum=hoist.th_sum)
+                # ref: rw_p/ru_p/rho_pp/rtheta_pp exchanged two layers
+                # deep before the recovery (:873-887); ruAvg/wwAvg full
+                # depth for the transport
+                av = av._replace(rw_p=xch.cell(av.rw_p, depth=2),
+                                 ru_p=xch.edge(av.ru_p, depth=2),
+                                 rho_pp=xch.cell(av.rho_pp, depth=2),
+                                 rtheta_pp=xch.cell(av.rtheta_pp,
+                                                    depth=2),
+                                 ruAvg=xch.edge(av.ruAvg),
+                                 wwAvg=xch.cell(av.wwAvg))
 
-            (u2, w2, th2, rho2, ru, rw, rho_p, rtheta_p, exner_new,
-             pressure_p_new, ruAvg, wwAvg) = recover_large_step_variables(
-                grid, cfg, av, rk, rk_timestep[rk - 1], nsub[rk - 1],
-                rho_p_save, rtheta_p_save, ru_save, rw_save, th2,
-                rt_diabatic_tend=rt_diab)
+            with span("atm.recover"):
+                (u2, w2, th2, rho2, ru, rw, rho_p, rtheta_p, exner_new,
+                 pressure_p_new, ruAvg,
+                 wwAvg) = recover_large_step_variables(
+                    grid, cfg, av, rk, rk_timestep[rk - 1], nsub[rk - 1],
+                    rho_p_save, rtheta_p_save, ru_save, rw_save, th2,
+                    rt_diabatic_tend=rt_diab)
             if rk == 3:
                 exner, pressure_p = exner_new, pressure_p_new
             # ref: u full-halo exchange after the recovery (:988), w after
             # the diagnostics (:1234-1248)
             u2 = xch.edge(u2)
             w2 = xch.cell(w2)
-            sd = solve_diagnostics(grid, cfg, u2, rho2, dt,
-                                   reconstruct_v=(rk == 3), v_prev=sd.v)
+            with span("atm.diagnostics"):
+                sd = solve_diagnostics(grid, cfg, u2, rho2, dt,
+                                       reconstruct_v=(rk == 3),
+                                       v_prev=sd.v)
 
         # substep finish (ref: atm_rk_dynamics_substep_finish :5993)
         if sub == 0:
@@ -253,22 +266,24 @@ def srk3_step(grid: AtmGrid, cfg: AtmConfig, carry: AtmCarry, dt,
     # (ref: RK3_SPLIT_TRANSPORT :1230-1580; Skamarock & Gassmann 2011)
     scalars = state1.scalars
     if cfg.config_scalar_advection and scalars.shape[-1] > 0:
-        tr_ts = (dt / 3.0, dt / 2.0, dt) if order == 3 \
-            else (dt / 2.0, dt / 2.0, dt)
-        sc_new = scalars
-        limited = cfg.config_monotonic or cfg.config_positive_definite
-        for rk in (1, 2, 3):
-            if rk < 3 or not limited:
-                sc_new = advance_scalars(
-                    grid, cfg, scalars, sc_new, rho_zz_old_split, rho2,
-                    ruAvg, wwAvg, tr_ts[rk - 1], rk, True)
-            else:
-                sc_new = advance_scalars_mono(
-                    grid, cfg, scalars, sc_new, rho_zz_old_split, rho2,
-                    ruAvg, wwAvg, tr_ts[rk - 1], True,
-                    positive_definite_only=not cfg.config_monotonic)
-            sc_new = xch.cell(sc_new)
-        scalars = sc_new
+        with span("atm.transport"):
+            tr_ts = (dt / 3.0, dt / 2.0, dt) if order == 3 \
+                else (dt / 2.0, dt / 2.0, dt)
+            sc_new = scalars
+            limited = cfg.config_monotonic \
+                or cfg.config_positive_definite
+            for rk in (1, 2, 3):
+                if rk < 3 or not limited:
+                    sc_new = advance_scalars(
+                        grid, cfg, scalars, sc_new, rho_zz_old_split,
+                        rho2, ruAvg, wwAvg, tr_ts[rk - 1], rk, True)
+                else:
+                    sc_new = advance_scalars_mono(
+                        grid, cfg, scalars, sc_new, rho_zz_old_split,
+                        rho2, ruAvg, wwAvg, tr_ts[rk - 1], True,
+                        positive_definite_only=not cfg.config_monotonic)
+                sc_new = xch.cell(sc_new)
+            scalars = sc_new
 
     # microphysics after transport, on the new time level; its theta_m
     # tendency feeds the next step's dynamics (ref: atm_srk3 :1654
@@ -279,17 +294,19 @@ def srk3_step(grid: AtmGrid, cfg: AtmConfig, carry: AtmCarry, dt,
           "mp_thompson": microphysics_step_thompson}.get(
         cfg.config_microp_scheme)
     if mp is not None:
-        (th2, scalars, rtheta_p, exner, pressure_p, rt_diab_out,
-         rain) = mp(grid, th2, rho2, scalars, exner, dt)
-        th2 = xch.cell(th2)
-        scalars = xch.cell(scalars)
-        rtheta_p = xch.cell(rtheta_p)
-        exner = xch.cell(exner)
-        pressure_p = xch.cell(pressure_p)
-        rt_diab_out = xch.cell(rt_diab_out)
-        rainnc = rainnc + rain
+        with span("atm.microphysics"):
+            (th2, scalars, rtheta_p, exner, pressure_p, rt_diab_out,
+             rain) = mp(grid, th2, rho2, scalars, exner, dt)
+            th2 = xch.cell(th2)
+            scalars = xch.cell(scalars)
+            rtheta_p = xch.cell(rtheta_p)
+            exner = xch.cell(exner)
+            pressure_p = xch.cell(pressure_p)
+            rt_diab_out = xch.cell(rt_diab_out)
+            rainnc = rainnc + rain
 
-    ur_cell, vr_cell = reconstruct_cell_winds(grid, u2)
+    with span("atm.reconstruct_winds"):
+        ur_cell, vr_cell = reconstruct_cell_winds(grid, u2)
     state2 = AtmState(u=u2, w=w2, theta_m=th2, rho_zz=rho2, scalars=scalars)
     diag2 = AtmDiag(ru=ru, rw=rw, rho_p=rho_p, rtheta_p=rtheta_p,
                     exner=exner, pressure_p=pressure_p,

@@ -16,7 +16,6 @@ is a Python loop of steps.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Any
 
@@ -24,6 +23,7 @@ import torch
 
 from mpas_tpu_torch.containers import to_device
 from mpas_tpu_torch.cores.landice.config import SECONDS_PER_YEAR, LiConfig
+from mpas_tpu_torch.framework.timers import span
 from mpas_tpu_torch.mesh.mesh import Mesh
 from mpas_tpu_torch.ops import stencils as st
 from mpas_tpu_torch.ops.matrix import tridiagonal_solve
@@ -281,21 +281,14 @@ def calve(grid: LiGrid, cfg: LiConfig, thickness, calving_flux,
     return new_h, calving_flux + (thickness - new_h)
 
 
-def _no_span(name):
-    return contextlib.nullcontext()
-
-
 def fe_step(grid: LiGrid, cfg: LiConfig, state: LiState, dt,
-            xch=None, owned=None, group=None, resid_out=None,
-            span=None) -> LiState:
+            xch=None, owned=None, group=None, resid_out=None) -> LiState:
     """One forward-Euler step (ref: li_time_integrator_forwardeuler,
     mpas_li_time_integration_fe.F). xch/owned/group: the sharded hooks of
     the FO Stokes velocity solve (the SIA branch needs none). resid_out:
-    see fo_velocity. span: a context-manager factory (e.g.
-    torch.profiler.record_function) opened around the velocity,
-    advection, thermal and calving parts, by those names."""
-    span = span or _no_span
-    with span("velocity"):
+    see fo_velocity. Its parts are the spans li.velocity, li.advection,
+    li.thermal and li.calving."""
+    with span("li.velocity"):
         if cfg.config_velocity_solver == "FO":
             u_int = fo_velocity(grid, cfg, state.thickness,
                                 state.temperature, xch=xch, owned=owned,
@@ -304,7 +297,7 @@ def fe_step(grid: LiGrid, cfg: LiConfig, state: LiState, dt,
             u_int = sia_velocity(grid, cfg, state.thickness,
                                  state.temperature)
     t = state.temperature
-    with span("advection"):
+    with span("li.advection"):
         if cfg.config_thickness_advection == "incremental_remapping":
             from mpas_tpu_torch.cores.landice.advection_ir import (
                 advect_thickness_ir)
@@ -314,7 +307,7 @@ def fe_step(grid: LiGrid, cfg: LiConfig, state: LiState, dt,
             h = advect_thickness_fo(grid, cfg, state.thickness, u_int, dt,
                                     scheme=cfg.config_thickness_advection)
     out = state
-    with span("thermal"):
+    with span("li.thermal"):
         if cfg.config_thermal_solver == "temperature":
             t = thermal_solve(grid, cfg, h, t, dt)
         elif cfg.config_thermal_solver == "enthalpy":
@@ -323,7 +316,7 @@ def fe_step(grid: LiGrid, cfg: LiConfig, state: LiState, dt,
             t, w, bmr = thermal_solve_enthalpy(grid, cfg, h, t,
                                                state.waterFrac, dt)
             out = dataclasses.replace(out, waterFrac=w, basalMeltRate=bmr)
-    with span("calving"):
+    with span("li.calving"):
         h, cf = calve(grid, cfg, h, state.calvingFlux, u_int=u_int, dt=dt)
     return dataclasses.replace(out, thickness=h, temperature=t,
                                normalVelocity=u_int, calvingFlux=cf)

@@ -33,6 +33,7 @@ from mpas_tpu_torch.cores.ocean.analysis.mixed_layer_depths import (
 from mpas_tpu_torch.cores.ocean.analysis.moc import MocStreamfunction
 from mpas_tpu_torch.cores.ocean.analysis.okubo_weiss import OkuboWeiss
 from mpas_tpu_torch.cores.ocean.analysis.zonal_mean import ZonalMean
+from mpas_tpu_torch.framework.timers import span
 
 _REGISTRY = {
     "globalStats": GlobalStats,
@@ -86,10 +87,11 @@ class AnalysisDriver:
         """Members whose compute declares a `forcing` parameter get the
         surface forcing (ref: members reading the forcing pool)."""
         fn = self._instances[name].compute
-        if forcing is not None and \
-                "forcing" in inspect.signature(fn).parameters:
-            return fn(grid, cfg, state, forcing=forcing)
-        return fn(grid, cfg, state)
+        with span(f"ocn.analysis.{name}"):
+            if forcing is not None and \
+                    "forcing" in inspect.signature(fn).parameters:
+                return fn(grid, cfg, state, forcing=forcing)
+            return fn(grid, cfg, state)
 
     def compute_due(self, grid, cfg, state, t_seconds: float,
                     forcing=None):

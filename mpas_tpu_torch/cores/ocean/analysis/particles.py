@@ -29,6 +29,7 @@ from typing import Any
 
 import torch
 
+from mpas_tpu_torch.framework.timers import spanned
 from mpas_tpu_torch.ops.reconstruct import (build_reconstruct_coeffs,
                                             reconstruct)
 
@@ -135,11 +136,11 @@ class ParticleTracker:
                                                 + 1.0), 0.0)
         return cand, w / w.sum(1, keepdim=True)
 
+    @spanned("ocn.particles")
     def cell_velocity(self, u_edge):
         """The cell-centre (zonal, meridional) velocity of u_edge, each
         (nCells, nz): what step() samples at both RK2 stages."""
-        _, _, _, uz, um = reconstruct(self.mesh, self._coeffs, u_edge)
-        return uz, um
+        return reconstruct(self.mesh, self._coeffs, u_edge)[3:]
 
     def _velocity_at(self, uz, um, ps: ParticleState):
         """IDW of the cell-centre velocity at the particle's layer."""
@@ -195,6 +196,7 @@ class ParticleTracker:
         raise ValueError(f"unknown vertical mode {mode!r}")
 
     # -- integration -------------------------------------------------------
+    @spanned("ocn.particles")
     def step(self, u_edge, dt, layer_thickness=None, w_vert=None,
              density=None, cell_velocity=None) -> ParticleState:
         """RK2 (midpoint) advection; returns and stores the new state.
@@ -202,8 +204,11 @@ class ParticleTracker:
         (trackers on one flow share it), else computed here."""
         m = self.mesh
         ps = self.state
-        uz, um = (self.cell_velocity(u_edge) if cell_velocity is None
-                  else cell_velocity)
+        if cell_velocity is None:
+            # not self.cell_velocity: its span would nest in this
+            # one of the same name, which a trace cannot tell apart
+            cell_velocity = reconstruct(m, self._coeffs, u_edge)[3:]
+        uz, um = cell_velocity
         u1, v1 = self._velocity_at(uz, um, ps)
         mid = self._advance(ps, u1, v1, 0.5 * dt)
         mid = dataclasses.replace(mid, cell=_walk(m, mid.x, mid.y, mid.z3,

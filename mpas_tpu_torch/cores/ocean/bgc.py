@@ -26,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from mpas_tpu_torch.cores.ocean.carbonate import air_sea_co2_flux
+from mpas_tpu_torch.framework.timers import spanned
 
 
 def _pos(x):
@@ -193,6 +194,7 @@ def ecosys_tendencies(h, sw_surface, tr8, params: EcosysParams):
                         d_detn, d_detsi], dim=-1)
 
 
+@spanned("ocn.bgc")
 def ecosys_step(state, grid, dt, sw_surface,
                 params: EcosysParams = EcosysParams(), index0: int = 2):
     """Operator-split ecosys update of tracers index0 .. index0+7, with
@@ -208,6 +210,7 @@ def ecosys_step(state, grid, dt, sw_surface,
                                tracers=_set_tracers(tr, index0, pools))
 
 
+@spanned("ocn.bgc")
 def carbon_step(state, grid, dt, t_c, s, wind10, index_dic: int,
                 index_alk: int, pco2_atm_uatm: float = 420.0,
                 ice_frac=0.0):

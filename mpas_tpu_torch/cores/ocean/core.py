@@ -42,6 +42,7 @@ from mpas_tpu_torch.cores.ocean.forcing import (surface_stress_tend,
                                                 surface_tracer_tend)
 from mpas_tpu_torch.cores.ocean.state import OcnGrid, OcnState
 from mpas_tpu_torch.cores.ocean.vmix import build_coefs
+from mpas_tpu_torch.framework.timers import span, spanned
 from mpas_tpu_torch.mesh.mesh import Mesh
 from mpas_tpu_torch.ops import stencils as st
 from mpas_tpu_torch.ops.matrix import tridiagonal_solve
@@ -350,7 +351,8 @@ def rk4_step(grid: OcnGrid, cfg: OcnConfig, state: OcnState, dt,
                    tracers=hT_acc / _nonzero(h_acc)[..., None],
                    ubtr=state.ubtr,
                    lowFreqDivergence=lfd_acc, highFreqThickness=hhf_acc)
-    return implicit_vertical_mix(grid, cfg, out, dt, forcing)
+    with span("ocn.vertical_mix"):
+        return implicit_vertical_mix(grid, cfg, out, dt, forcing)
 
 
 def _fperp(mesh: Mesh, v, f_at_edges):
@@ -466,104 +468,110 @@ def split_step(grid: OcnGrid, cfg: OcnConfig, state: OcnState,
     ubtr_avg = ubtr_cur
     for outer in range(n_ts):
         # --- stage 1: baroclinic prediction --------------------------------
-        if outer == 0:
-            u_st, h_st, tr_st = u_cur, h_cur, tr_cur
-        else:
-            u_st, h_st, tr_st = u_new, h_new, tr_new
-        h_edge = st.cell_to_edge_mean(mesh, h_st)
-        h_edge_safe = _nonzero(h_edge.sum(-1))
-        tend_u = vel_tendency(grid, cfg, u_st, h_st, tr_st, w_for_tend, dt,
-                              planetary=False)
-        for _ in range(n_bcl[outer]):
-            fperp = _fperp(mesh, ubcl_new, f_edge)
-            u_temp = ubcl_cur + dt * (tend_u + fperp
-                                      + g * grad_e(ssh_new)[:, None])
-            G = (h_edge * u_temp).sum(-1) / h_edge_safe / dt
-            ubcl_new = 0.5 * (ubcl_cur + u_temp - dt * G[:, None]) \
-                * not_bnd[:, None]
-            # ref: normalBaroclinicVelocity exchanged per bcl iteration
-            ubcl_new = ee(ubcl_new)
-        G = ee(G)
+        with span("ocn.baroclinic"):
+            if outer == 0:
+                u_st, h_st, tr_st = u_cur, h_cur, tr_cur
+            else:
+                u_st, h_st, tr_st = u_new, h_new, tr_new
+            h_edge = st.cell_to_edge_mean(mesh, h_st)
+            h_edge_safe = _nonzero(h_edge.sum(-1))
+            tend_u = vel_tendency(grid, cfg, u_st, h_st, tr_st, w_for_tend,
+                                  dt, planetary=False)
+            for _ in range(n_bcl[outer]):
+                fperp = _fperp(mesh, ubcl_new, f_edge)
+                u_temp = ubcl_cur + dt * (tend_u + fperp
+                                          + g * grad_e(ssh_new)[:, None])
+                G = (h_edge * u_temp).sum(-1) / h_edge_safe / dt
+                ubcl_new = 0.5 * (ubcl_cur + u_temp - dt * G[:, None]) \
+                    * not_bnd[:, None]
+                # ref: normalBaroclinicVelocity exchanged per bcl iteration
+                ubcl_new = ee(ubcl_new)
+            G = ee(G)
 
         # --- stage 2: barotropic subcycling --------------------------------
-        dtb = dt / n_btr
-        ssh_o, ubtr_o = ssh_cur, ubtr_cur
-        ubtr_acc, flux_acc = ubtr_cur, torch.zeros_like(ubtr_cur)
-        for _ in range(n_loop):
-            # 'subcycleFields' exchange-group reuse, depth-restricted (ref
-            # :771, haloLayers on ssh + ubtr): the rings this body
-            # consumes, two for the predictor and one more per corrector
-            # iteration (btr_depth)
-            ssh_o = ce(ssh_o, depth=btr_depth)
-            ubtr_o = ee(ubtr_o, depth=btr_depth)
-            # velocity predictor (ref :820-838)
-            cor = _fperp(mesh, ubtr_o, f_edge)
-            ubtr_n = not_bnd * (ubtr_o + dtb * (cor - g * grad_e(ssh_o) + G))
-            # SSH forward-backward solve + flux accumulation (ref :896-960)
-            h_sum = st.cell_to_edge_mean(mesh, ssh_o) + min_depth
-            flux = ((1.0 - gam1) * ubtr_o + gam1 * ubtr_n) * h_sum * not_bnd
-            ssh_n = ssh_o - dtb * st.edge_divergence(mesh, flux)
-            flux_acc = flux_acc + flux
-            # velocity corrector iterations (ref :1020-1076)
-            for _ in range(cfg.config_n_btr_cor_iter):
-                cor = _fperp(mesh, ubtr_n, f_edge)
-                ssh_w = (1.0 - gam2) * ssh_o + gam2 * ssh_n
-                ubtr_n = not_bnd * (ubtr_o + dtb * (cor - g * grad_e(ssh_w)
+        with span("ocn.barotropic"):
+            dtb = dt / n_btr
+            ssh_o, ubtr_o = ssh_cur, ubtr_cur
+            ubtr_acc, flux_acc = ubtr_cur, torch.zeros_like(ubtr_cur)
+            for _ in range(n_loop):
+                # 'subcycleFields' exchange-group reuse, depth-restricted
+                # (ref :771, haloLayers on ssh + ubtr): the rings this body
+                # consumes, two for the predictor and one more per corrector
+                # iteration (btr_depth)
+                ssh_o = ce(ssh_o, depth=btr_depth)
+                ubtr_o = ee(ubtr_o, depth=btr_depth)
+                # velocity predictor (ref :820-838)
+                cor = _fperp(mesh, ubtr_o, f_edge)
+                ubtr_n = not_bnd * (ubtr_o + dtb * (cor - g * grad_e(ssh_o)
                                                     + G))
-            ssh_o, ubtr_o = ssh_n, ubtr_n
-            ubtr_acc = ubtr_acc + ubtr_n
-        # the velocity average counts the starting value, the flux
-        # average does not (ref :1282-1290)
-        flux_avg = flux_acc / n_loop
-        ubtr_avg = ubtr_acc / (n_loop + 1)
-        # 'finalBtrFields' full-depth exchange (ref :1282-1290)
-        flux_avg = ee(flux_avg)
-        ubtr_avg = ee(ubtr_avg)
+                # SSH forward-backward solve + flux accumulation (ref :896-960)
+                h_sum = st.cell_to_edge_mean(mesh, ssh_o) + min_depth
+                flux = ((1.0 - gam1) * ubtr_o + gam1 * ubtr_n) * h_sum \
+                    * not_bnd
+                ssh_n = ssh_o - dtb * st.edge_divergence(mesh, flux)
+                flux_acc = flux_acc + flux
+                # velocity corrector iterations (ref :1020-1076)
+                for _ in range(cfg.config_n_btr_cor_iter):
+                    cor = _fperp(mesh, ubtr_n, f_edge)
+                    ssh_w = (1.0 - gam2) * ssh_o + gam2 * ssh_n
+                    ubtr_n = not_bnd * (ubtr_o + dtb * (cor - g * grad_e(ssh_w)
+                                                        + G))
+                ssh_o, ubtr_o = ssh_n, ubtr_n
+                ubtr_acc = ubtr_acc + ubtr_n
+            # the velocity average counts the starting value, the flux
+            # average does not (ref :1282-1290)
+            flux_avg = flux_acc / n_loop
+            ubtr_avg = ubtr_acc / (n_loop + 1)
+            # 'finalBtrFields' full-depth exchange (ref :1282-1290)
+            flux_avg = ee(flux_avg)
+            ubtr_avg = ee(ubtr_avg)
 
-        # velocity correction (ref :1282-1345)
-        u_full = ubtr_avg[:, None] + ubcl_new
-        if cfg.config_vel_correction:
-            corr = (flux_avg - (h_edge * u_full).sum(-1)) / h_edge_safe
-        else:
-            corr = torch.zeros_like(ubtr_avg)
-        u_transport = (u_full + corr[:, None]) * not_bnd[:, None]
+        with span("ocn.update"):
+            # velocity correction (ref :1282-1345)
+            u_full = ubtr_avg[:, None] + ubcl_new
+            if cfg.config_vel_correction:
+                corr = (flux_avg - (h_edge * u_full).sum(-1)) / h_edge_safe
+            else:
+                corr = torch.zeros_like(ubtr_avg)
+            u_transport = (u_full + corr[:, None]) * not_bnd[:, None]
 
-        # --- stage 3: thickness / tracer update ----------------------------
-        if cfg.config_use_gm:
-            # GM bolus transport added to the advective velocity (ref:
-            # ocn_gm; as on the RK4 path)
-            rho_gm = equation_of_state(cfg, tr_new[..., 0], tr_new[..., 1])
-            u_transport = u_transport + gm.bolus_velocity(grid, cfg, rho_gm,
-                                                          h_st)
-        uh = u_transport * h_edge
-        if grid.edgeMask is not None:
-            uh = uh * grid.edgeMask
-        _, tend_h, w_top = thickness_tendency(grid, uh)
-        tend_hT = tracer_tendency(grid, cfg, uh, w_top, h_st, tr_new)
-        w_for_tend = w_top
-        if outer < n_ts - 1:
-            temp_h = h_cur + dt * tend_h
-            h_new = 0.5 * (h_cur + temp_h)
-            temp_tr = (tr_cur * h_cur[..., None] + dt * tend_hT) \
-                / _nonzero(temp_h)[..., None]
-            tr_new = 0.5 * (tr_cur + temp_tr)
-            u_new = ubtr_avg[:, None] + ubcl_new
-            # the midpoint prognostics feed the next outer pass: refresh
-            # their halos (ref: the 'combined' exchange between ts
-            # iterations, :1390+)
-            h_new = ce(h_new)
-            tr_new = ce(tr_new)
-            ssh_new = h_new.sum(-1) - grid.bottomDepth
-        else:
-            h_new = h_cur + dt * tend_h
-            tr_new = (tr_cur * h_cur[..., None] + dt * tend_hT) \
-                / _nonzero(h_new)[..., None]
-            # ubcl_new is at n+1/2: extrapolate to n+1 (ref :1733-1737)
-            u_new = ubtr_avg[:, None] + 2.0 * ubcl_new - ubcl_cur
+            # --- stage 3: thickness / tracer update ------------------------
+            if cfg.config_use_gm:
+                # GM bolus transport added to the advective velocity (ref:
+                # ocn_gm; as on the RK4 path)
+                rho_gm = equation_of_state(cfg, tr_new[..., 0], tr_new[..., 1])
+                u_transport = u_transport + gm.bolus_velocity(
+                    grid, cfg, rho_gm, h_st)
+            uh = u_transport * h_edge
+            if grid.edgeMask is not None:
+                uh = uh * grid.edgeMask
+            _, tend_h, w_top = thickness_tendency(grid, uh)
+            tend_hT = tracer_tendency(grid, cfg, uh, w_top, h_st, tr_new)
+            w_for_tend = w_top
+            if outer < n_ts - 1:
+                temp_h = h_cur + dt * tend_h
+                h_new = 0.5 * (h_cur + temp_h)
+                temp_tr = (tr_cur * h_cur[..., None] + dt * tend_hT) \
+                    / _nonzero(temp_h)[..., None]
+                tr_new = 0.5 * (tr_cur + temp_tr)
+                u_new = ubtr_avg[:, None] + ubcl_new
+                # the midpoint prognostics feed the next outer pass: refresh
+                # their halos (ref: the 'combined' exchange between ts
+                # iterations, :1390+)
+                h_new = ce(h_new)
+                tr_new = ce(tr_new)
+                ssh_new = h_new.sum(-1) - grid.bottomDepth
+            else:
+                h_new = h_cur + dt * tend_h
+                tr_new = (tr_cur * h_cur[..., None] + dt * tend_hT) \
+                    / _nonzero(h_new)[..., None]
+                # ubcl_new is at n+1/2: extrapolate to n+1 (ref :1733-1737)
+                u_new = ubtr_avg[:, None] + 2.0 * ubcl_new - ubcl_cur
 
     out = OcnState(u=u_new * not_bnd[:, None], layerThickness=h_new,
                    tracers=tr_new, ubtr=ubtr_avg)
-    mixed = implicit_vertical_mix(grid, cfg, out, dt, forcing)
+    with span("ocn.vertical_mix"):
+        mixed = implicit_vertical_mix(grid, cfg, out, dt, forcing)
     return dataclasses.replace(mixed, ubtr=ubtr_avg)
 
 
@@ -579,12 +587,14 @@ def apply_surface_forcing(grid: OcnGrid, cfg: OcnConfig, state: OcnState,
     return dataclasses.replace(state, u=state.u + dt * du, tracers=tr)
 
 
+@spanned("ocn.timestep")
 def ocn_timestep(grid: OcnGrid, cfg: OcnConfig, state: OcnState,
                  dt, forcing=None, xch=None) -> OcnState:
     """Integrator dispatch (ref: ocn_timestep,
     mpas_ocn_time_integration.F:80)."""
     if forcing is not None:
-        state = apply_surface_forcing(grid, cfg, state, forcing, dt)
+        with span("ocn.forcing"):
+            state = apply_surface_forcing(grid, cfg, state, forcing, dt)
     if cfg.config_time_integrator == "split_explicit":
         out = split_step(grid, cfg, state, dt, forcing, xch=xch)
     elif cfg.config_time_integrator == "RK4":

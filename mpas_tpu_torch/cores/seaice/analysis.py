@@ -37,6 +37,7 @@ import torch
 from mpas_tpu_torch.containers import to_host
 from mpas_tpu_torch.cores.seaice.thermo_vertical import (
     bl99_salinity_profile, temperature_ice_bl99, temperature_mush)
+from mpas_tpu_torch.framework.timers import span
 
 # sea-ice extent threshold: cells count toward 'extent' when total
 # concentration exceeds 0.15 (the reference/observational convention used
@@ -422,15 +423,19 @@ class SeaiceAnalysisDriver:
             self.history[name] = []
             self._next_due[name] = 0.0
 
+    def _run(self, name, grid, cfg, state):
+        with span(f"si.analysis.{name}"):
+            return self._instances[name].compute(grid, cfg, state)
+
     def compute_due(self, grid, cfg, state, t_seconds: float):
         for name, interval in self.members.items():
             if t_seconds + 1e-9 >= self._next_due[name]:
-                out = self._instances[name].compute(grid, cfg, state)
+                out = self._run(name, grid, cfg, state)
                 self.history[name].append((t_seconds, out))
                 while self._next_due[name] <= t_seconds + 1e-9:
                     self._next_due[name] += interval
 
     def compute_all(self, grid, cfg, state, t_seconds: float = 0.0):
         for name in self.members:
-            out = self._instances[name].compute(grid, cfg, state)
+            out = self._run(name, grid, cfg, state)
             self.history[name].append((t_seconds, out))

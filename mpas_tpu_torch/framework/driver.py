@@ -68,9 +68,7 @@ class Driver:
         self.run_dir = run_dir
         os.makedirs(run_dir, exist_ok=True)
         self.log = LogManager(hooks.name, run_dir=run_dir)
-        self.timers = TimerManager(
-            sync=(lambda: torch.cuda.synchronize(self.device))
-            if self.device.type == "cuda" else None)
+        self.timers = TimerManager(self.device)
 
         # Map MPAS namelist calendar names (mpas_timekeeping.F:160 accepts
         # 'gregorian', 'gregorian_noleap', '360day') to timekeeping names.

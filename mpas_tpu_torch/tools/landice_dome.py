@@ -32,7 +32,6 @@ steps after one warm step and prints ms/step.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import time
 
@@ -45,6 +44,7 @@ from mpas_tpu_torch.cores.landice.core import (fe_step, make_grid,
 from mpas_tpu_torch.cores.landice.hydro import sgh_step_full, zero_hydro
 from mpas_tpu_torch.cores.landice.init_dome import init_halfar
 from mpas_tpu_torch.cores.landice.statistics import global_stats
+from mpas_tpu_torch.framework.timers import span
 from mpas_tpu_torch.mesh.planar import box_hex_mesh
 
 MESH = (302, 348, 4000.0)      # 103,800 cells at 4 km
@@ -59,8 +59,8 @@ FO_OPTIONS = dict(config_velocity_solver="FO",
 HYDRO_SUBSTEPS = 10
 SLIDING_SPEED = 1.0e-6         # m/s under ice, drives cavity opening
 # the parts of a step the profiled step reports (spans of step())
-PARTS = ("velocity", "advection", "thermal", "calving", "hydrology",
-         "stats")
+PARTS = ("li.velocity", "li.advection", "li.thermal", "li.calving",
+         "li.hydrology", "li.stats")
 
 
 def config(name, **overrides) -> LiConfig:
@@ -108,25 +108,20 @@ def sliding_speed(thickness):
                        torch.zeros_like(thickness))
 
 
-def _no_span(name):
-    return contextlib.nullcontext()
-
-
-def step(grid, cfg, state, hydro, resid_out=None, span=None):
+def step(grid, cfg, state, hydro, resid_out=None):
     """One step of the path: fe_step, then on the FO path the hydrology;
     global_stats of the new state. Returns (state, hydro, stats); the
-    stats are 0-d device tensors. span: see core.fe_step (also opened
-    around "hydrology" and "stats")."""
+    stats are 0-d device tensors. Its parts are fe_step's spans,
+    li.hydrology and li.stats (PARTS)."""
     dt = float(cfg.config_dt)
-    span = span or _no_span
-    state = fe_step(grid, cfg, state, dt, resid_out=resid_out, span=span)
+    state = fe_step(grid, cfg, state, dt, resid_out=resid_out)
     if hydro is not None:
-        with span("hydrology"):
+        with span("li.hydrology"):
             h = state.thickness
             hydro = sgh_step_full(grid, cfg, hydro, h, state.basalMeltRate,
                                   sliding_speed(h), dt, n_sub=HYDRO_SUBSTEPS,
                                   channels=True)
-    with span("stats"):
+    with span("li.stats"):
         stats = global_stats(grid, cfg, state)
     return state, hydro, stats
 

@@ -221,10 +221,9 @@ def seaice_run(device=None):
 
 
 def landice_run(device=None):
-    """{label: op count} of a step of each land-ice path and its parts, on
-    box_hex_mesh(20, 20, 3 km) with a dome of h0 500 m, r0 25 km."""
-    from torch.profiler import record_function
-
+    """{label: op count} of a step of each land-ice path and its parts
+    (the spans of landice_dome.PARTS), on box_hex_mesh(20, 20, 3 km)
+    with a dome of h0 500 m, r0 25 km."""
     from mpas_tpu_torch.cores.landice.core import fo_velocity
     from mpas_tpu_torch.mesh.planar import box_hex_mesh
     from mpas_tpu_torch.tools import landice_dome
@@ -237,21 +236,16 @@ def landice_run(device=None):
             name, mesh, cfg, (500.0, 25000.0), torch.float64, device)
         out[f"{name} step"] = count_ops(
             lambda: landice_dome.step(grid, cfg, state, hydro))
-        spans = {}
-
-        def span(part):
-            spans.setdefault(part, 0)
-            return record_function(f"span::{part}")
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU]) as prof:
-            landice_dome.step(grid, cfg, state, hydro, span=span)
+            landice_dome.step(grid, cfg, state, hydro)
         for e in prof.events():
             part = e.cpu_parent
-            while part is not None and not part.name.startswith("span::"):
+            while part is not None and part.name not in landice_dome.PARTS:
                 part = part.cpu_parent
             if (part is not None and e.name.startswith("aten::")
                     and e.name not in NO_KERNEL):
-                key = f"{name} {part.name[6:]}"
+                key = f"{name} {part.name}"
                 out[key] = out.get(key, 0) + 1
         if cfg.config_velocity_solver == "FO":
             def velocity(picard, cg):

@@ -748,3 +748,31 @@ def test_sharded_seaice_on_the_card_matches_unsharded(cuda_device, name):
                            else mesh.nCells)
         assert_close([torch.from_numpy(got)], [getattr(ref, f).cpu()],
                      1e-11)
+
+
+@pytest.mark.cuda
+def test_timer_manager_on_the_card_waits_only_in_its_table(cuda_device,
+                                                           monkeypatch):
+    """framework/timers.py's TimerManager on the card: a timer around 20
+    products of 2,048 x 2,048 matrices returns before the card finishes
+    (nothing synchronises inside a timer), and the table, which
+    synchronises once, gives that row device seconds of the work itself
+    (over 20 x 17 GFLOP at at most the float32 peak, 67 TFLOP/s)."""
+    from mpas_tpu_torch.framework.timers import TimerManager
+    syncs = []
+    sync = torch.cuda.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda device=None: (syncs.append(device),
+                                             sync(device)))
+    a = torch.randn(2048, 2048, device=cuda_device)
+    sync(cuda_device)
+    tm = TimerManager(cuda_device)
+    with tm.timer("products"):
+        for _ in range(20):
+            b = a @ a
+    del b
+    assert not syncs
+    row = tm.table().splitlines()[1].split()
+    assert len(syncs) == 1
+    assert row[:2] == ["products", "1"]
+    assert float(row[-1]) >= 20 * 2 * 2048 ** 3 / 67e12

@@ -356,24 +356,70 @@ def test_hdf5_input_is_refused(tmp_path):
 # timers and log
 # ---------------------------------------------------------------------------
 
-def test_timer_nesting_and_sync():
-    calls = []
-    tm = TimerManager(sync=lambda: calls.append(1))
-    with tm.timer("outer"):
-        with tm.timer("inner"):
+def test_timer_nesting_and_sync(monkeypatch):
+    """The event-based timers on a stand-in card whose events complete
+    when marked or synchronised (1 ms between records): nesting, counts,
+    pairs resolved at a timer's exit once complete, a table row of
+    calls, host and device seconds per timer, and no synchronise but the
+    table's."""
+    events, syncs = [], []
+
+    class Event:
+        def __init__(self, enable_timing=False):
+            assert enable_timing
+            self.done = False
+
+        def record(self, stream=None):
+            self.ms = float(len(events))
+            events.append(self)
+
+        def query(self):
+            return self.done
+
+        def elapsed_time(self, end):
+            assert self.done and end.done
+            return end.ms - self.ms
+
+    def synchronize(device=None):
+        syncs.append(device)
+        for e in events:
+            e.done = True
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", synchronize)
+    tm = TimerManager("cuda")
+    with tm.timer("outer"):          # events at 0 ms and 5 ms
+        with tm.timer("inner"):      # 1-2 ms
             pass
-        with tm.timer("inner"):
+        with tm.timer("inner"):      # 3-4 ms
             pass
-    tm.start("flat")
-    tm.stop("flat")
-    with pytest.raises(RuntimeError):
-        tm.start("a")
-        tm.stop("b")
-    assert tm.root.children["outer"].children["inner"].count == 2
-    assert tm.root.children["outer"].count == 1
-    assert len(calls) == 6           # both ends of the three timers
+    outer = tm.root.children["outer"]
+    inner = outer.children["inner"]
+    assert (outer.count, inner.count) == (1, 2)
+    assert len(inner.pending) == 2 and inner.device == 0.0
+    for e in events:                 # the card catches up
+        e.done = True
+    with tm.timer("outer"):          # 6-7 ms; its exit resolves the
+        pass                         # first pair, its own still runs
+    assert outer.count == 2 and len(outer.pending) == 1
+    assert outer.device == pytest.approx(0.005)
+    assert len(inner.pending) == 2 and not syncs
     lines = tm.table().splitlines()
-    assert lines[1].startswith("outer") and lines[2].startswith("  inner")
+    assert len(syncs) == 1 and not inner.pending and not outer.pending
+    assert float(lines[1].split()[-1]) == pytest.approx(0.006)
+    assert lines[0].split()[-4:] == ["host", "(s)", "device", "(s)"]
+    assert lines[1].split()[:2] == ["outer", "2"]
+    assert lines[2].startswith("  inner")
+    assert float(lines[2].split()[-1]) == pytest.approx(0.002)
+    assert inner.host >= 0.0 and outer.host >= inner.host
+    # off a card: host seconds only, and nothing synchronised
+    cpu = TimerManager("cpu")
+    with cpu.timer("step"):
+        pass
+    row = cpu.table().splitlines()[1].split()
+    assert row[:2] == ["step", "1"] and row[-1] == "-"
+    assert len(syncs) == 1 and len(events) == 8
 
 
 def test_log_crit_raises(tmp_path):
