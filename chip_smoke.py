@@ -21,7 +21,11 @@ seconds):
    shallow-water TRiSK pair (K = 1 and 2), at the ocean channel's three
    (6,336 cells: the barotropic Coriolis reconstruction at K = 1, the
    baroclinic one at K = 20, the q-term at K = 40) and ocean_global_120km's
-   (40,962 cells, K = 1, 60 and 120). Each kernel is timed on the device
+   (40,962 cells, K = 1, 60 and 120); K3 at ocean_global_120km's vertical
+   mix (the 12 tracers of 40,962 cells and the 122,880 edges' velocity
+   with bottom drag, 60 levels, both with a level mask) and the channel's
+   (its 2 tracers on 6,336 cells and its velocity with bottom drag on
+   19,072 edges, 20 levels, no mask). Each kernel is timed on the device
    with the host excluded and the L2 cold (device_time_ms: a CUDA graph of
    launches rotating over copies of the inputs, >100 MB apart, replayed 7
    times; min / median / max ms per launch), beside the least time its
@@ -320,8 +324,12 @@ SUPERCELL_DISSIPATION = dict(config_horiz_mixing="2d_fixed",
 URBAN_CELLS = 9216                 # supercell_2km's columns
 SW_K2_PER_STEP = 4 * 2             # 4 RK stages x (tangential + q pair)
 OCEAN_CELLS = 6336                 # channel_hex_mesh(32, 200, 10 km)
+OCEAN_EDGES = 19072
 OCEAN_NZ = 20
-# (path, nC, nz) of K1, and (path, nC, (P, I, K) ...) of K2
+# (path, nC, nz) of K1, (path, nC, (P, I, K) ...) of K2, and (path, n, nz,
+# ntr, masked) of K3 (ntr 1: the velocity solve, a 2-D field with bottom
+# drag and a boundary row; masked: with a level mask, as ocean_global's
+# grid has one and the channel's has none)
 K1_SHAPES = (("jw_120km", 40962, 26), ("supercell_2km", 9216, 40),
              ("jw_var60_15", 23000, 26), ("real_120km", 40962, 55))
 K2_SHAPES = (("jw_120km", 40962, ((6, 6, 26), (6, 6, 52), (3, 6, 26))),
@@ -333,6 +341,10 @@ K2_SHAPES = (("jw_120km", 40962, ((6, 6, 26), (6, 6, 52), (3, 6, 26))),
                                                   (6, 6, 40))),
              ("ocean_global_120km", 40962, ((6, 6, 1), (6, 6, 60),
                                             (6, 6, 120))))
+K3_SHAPES = (("ocean_global_120km", 40962, 60, 12, True),
+             ("ocean_global_120km", 122880, 60, 1, True),
+             ("ocean_channel_10km", OCEAN_CELLS, OCEAN_NZ, 2, False),
+             ("ocean_channel_10km", OCEAN_EDGES, OCEAN_NZ, 1, False))
 
 
 def require(cond, msg):
@@ -456,15 +468,17 @@ def cuda_time_ms(fn, reps=20):
     return start.elapsed_time(stop) / reps
 
 
-def check_kernels(device, k1_shapes=K1_SHAPES, k2_shapes=K2_SHAPES):
+def check_kernels(device, k1_shapes=K1_SHAPES, k2_shapes=K2_SHAPES,
+                  k3_shapes=K3_SHAPES):
     """Phase 3: each kernel against its plain version at every path's
     shapes, and timed on the device. Returns {(kernel, path, dtype,
     shape): numbers}."""
-    from mpas_tpu_torch.kernels import acoustic, tinydot as k2
+    from mpas_tpu_torch.kernels import acoustic, tinydot as k2, vmix
 
     rel_tol = {"acoustic_cell_update": {torch.float64: 1e-12,
                                         torch.float32: 1e-5},
-               "tinydot": {torch.float64: 1e-12, torch.float32: 1e-6}}
+               "tinydot": {torch.float64: 1e-12, torch.float32: 1e-6},
+               "vmix_solve": {torch.float64: 1e-12, torch.float32: 1e-5}}
     print(f"graph floor (1-element add): {graph_floor_ms(device)[1]:.4f} "
           "ms per launch")
     results = {}
@@ -533,21 +547,59 @@ def check_kernels(device, k1_shapes=K1_SHAPES, k2_shapes=K2_SHAPES):
                 results[("tinydot", path, dtype, (P, I, K))] = dict(
                     max_abs_err=err, plain_ms=plain_ms, **t,
                     shape=f"nC={nc} P={P} I={I} K={K} float32")
+
+    # the vertical mix's solves (cores/ocean/core.py:implicit_vertical_mix)
+    # on seeded columns, with dead and one-level columns where masked
+    for path, n, nz, ntr, masked in k3_shapes:
+        drag = 1e-3 if ntr == 1 else 0.0
+        for dtype in (torch.float64, torch.float32):
+            a = {k: torch.from_numpy(v).to(device, dtype) for k, v in
+                 vmix.example_args(n, nz, 0 if ntr == 1 else ntr).items()
+                 if (ntr == 1 or k != "boundary") and (masked or k != "mask")}
+
+            def solve(c, fn=vmix.vmix_solve):
+                return fn(c["field"], c["h"], c["kappa"], 900.0,
+                          c.get("mask"), drag, c.get("boundary"))
+            got, ref = solve(a), solve(a, vmix.vmix_solve_plain)
+            scale = float(ref.abs().max())
+            err = float((got - ref).abs().max())
+            tol = rel_tol["vmix_solve"][dtype] * scale
+            del got, ref
+            print(f"K3 vmix_solve {path} (n,nz,ntr)=({n},{nz},{ntr}) "
+                  f"{'masked' if masked else 'no mask'} {dtype}: "
+                  f"max_abs_err {err:.3e} (tol {tol:.3e})")
+            require(err <= tol, "K3 disagrees with its plain version")
+            if dtype != torch.float32:
+                continue
+            nbytes = vmix.bytes_moved(n, nz, ntr, 4, masked)
+            t = timing_numbers(solve, rotating_copies(a, nbytes), nbytes,
+                               vmix.operations(n, nz, ntr), dtype)
+            plain_ms = cuda_time_ms(lambda: solve(a, vmix.vmix_solve_plain))
+            print(f"K3 f32 time {path} at (n,nz,ntr)=({n},{nz},{ntr}), "
+                  f"(cols, threads) {vmix.plan(nz, ntr, 4)[:2]}: "
+                  f"{timing_text(t)}; plain {plain_ms:.4f} ms "
+                  "(host-inclusive events, no yardstick)")
+            results[("vmix_solve", path, dtype, (n, nz, ntr))] = dict(
+                max_abs_err=err, plain_ms=plain_ms, **t,
+                shape=f"n={n} nz={nz} ntr={ntr} "
+                f"{'masked' if masked else 'no mask'} float32")
     return results
 
 
 def kernel_json_numbers(results):
-    """The JSON line's numbers per kernel: the times and bound at the
-    jw_120km f32 shape of most of its calls, the worst f32 error over all
-    shapes."""
+    """The JSON line's numbers per kernel: the times and bound at the f32
+    shape of most of its calls (jw_120km's; K3 ocean_global_120km's
+    tracers), the worst f32 error over all shapes."""
     keys = ("ms", "ms_min", "ms_max", "plain_ms", "bound_ms", "bound_by",
             "pct_of_bound", "library_ms", "shape")
     out = {}
-    for name, key in (("acoustic_cell_update", (40962, 26)),
-                      ("tinydot", (6, 6, 52))):
+    for name, path, key in (
+            ("acoustic_cell_update", "jw_120km", (40962, 26)),
+            ("tinydot", "jw_120km", (6, 6, 52)),
+            ("vmix_solve", "ocean_global_120km", (40962, 60, 12))):
         f32 = {k: v for k, v in results.items()
                if k[0] == name and k[2] == torch.float32}
-        at = f32[(name, "jw_120km", torch.float32, key)]
+        at = f32[(name, path, torch.float32, key)]
         out[name] = dict({k: at[k] for k in keys},
                          max_abs_err=max(v["max_abs_err"]
                                          for v in f32.values()))
@@ -1884,10 +1936,27 @@ def ocean_setup(nx, ny, nz, dt, integrator="split_explicit"):
                                           nz=nz))
 
 
+def k3_held(name, dev, steps, run):
+    """run() with the launch counts zeroed just before; on the card, K3
+    launched VMIX_SOLVE_LAUNCHES_PER_STEP times for each of its `steps`
+    ocean steps."""
+    from mpas_tpu_torch import kernels
+    from mpas_tpu_torch.cores.ocean.core import VMIX_SOLVE_LAUNCHES_PER_STEP
+    kernels.reset_launch_counts()
+    out = run()
+    if dev.type == "cuda":
+        want = VMIX_SOLVE_LAUNCHES_PER_STEP * steps
+        got = kernels.launch_counts["vmix_solve"]
+        require(got == want, f"{name}: K3 launched {got} times in {steps} "
+                f"steps, expected {want}")
+    return out
+
+
 def check_small_ocean(device):
     """Phase 4: the f64 baroclinic channel of tests/test_ocean_core.py
     (192 cells, 10 levels) on the card vs the CPU: 3 split-explicit steps
-    at dt = 300 s and 4 RK4 steps at dt = 30 s."""
+    at dt = 300 s and 4 RK4 steps at dt = 30 s, K3 twice a step on the
+    card."""
     from mpas_tpu_torch.cores.ocean.core import run_steps
     for integrator, dt, steps in (("split_explicit", 300.0, 3),
                                   ("RK4", 30.0, 4)):
@@ -1896,8 +1965,9 @@ def check_small_ocean(device):
         for where, dev in (("cpu", torch.device("cpu")), ("cuda", device)):
             f64 = torch.float64
             t0 = time.perf_counter()
-            out = run_steps(grid.to(dev, f64), cfg, state.to(dev, f64),
-                            steps)
+            out = k3_held(f"small ocean {integrator}", dev, steps,
+                          lambda: run_steps(grid.to(dev, f64), cfg,
+                                            state.to(dev, f64), steps))
             if dev.type == "cuda":
                 torch.cuda.synchronize()
             print(f"small f64 ocean {integrator} on {where}: {steps} steps "
@@ -1950,10 +2020,13 @@ OCN_STATE = ("u", "layerThickness", "tracers", "ubtr")
 OCEAN_INIT_RTOL = {"cvmix_wswsbf": 5e-10}
 
 
-def ocean_on_both(device, fn):
-    """fn(device) on the CPU and on the card in float64: {"cpu": {name:
-    numpy}, "cuda": ...} of the dicts of tensors it returns."""
-    return {w: {k: v.cpu().numpy() for k, v in fn(dev).items()}
+def ocean_on_both(device, fn, name, steps):
+    """fn(device), `steps` ocean steps, on the CPU and on the card in
+    float64 (K3 twice a step there): {"cpu": {name: numpy}, "cuda": ...}
+    of the dicts of tensors it returns."""
+    return {w: {k: v.cpu().numpy()
+                for k, v in k3_held(name, dev, steps,
+                                    lambda: fn(dev)).items()}
             for w, dev in (("cpu", torch.device("cpu")), ("cuda", device))}
 
 
@@ -1997,7 +2070,8 @@ def check_small_ocean_inits(device, mesh8):
         print(f"ocean init {name} ({out[0].mesh.nCells} cells x "
               f"{out[0].nz}, {cfg.config_time_integrator} dt "
               f"{cfg.config_dt:g} s{', forced' if forcing else ''}):")
-        compare_scaled(f"ocean init {name}", ocean_on_both(device, run),
+        compare_scaled(f"ocean init {name}",
+                       ocean_on_both(device, run, f"ocean init {name}", 2),
                        OCEAN_INIT_RTOL.get(name, PHYS_RTOL))
 
 
@@ -2029,7 +2103,7 @@ def check_land_ice_fluxes(device):
             melt.append(fx.melt_rate)
         return dict({k: getattr(st, k) for k in OCN_STATE},
                     melt_rate=torch.stack(melt))
-    fields = ocean_on_both(device, run)
+    fields = ocean_on_both(device, run, "isomip_plus + land-ice fluxes", 3)
     print(f"isomip_plus + land-ice fluxes: total melt rate "
           f"{fields['cuda']['melt_rate'].sum():.6e} m/s")
     compare_scaled("land-ice fluxes", fields, PHYS_RTOL)
@@ -2070,7 +2144,7 @@ def check_bgc_columns(device):
             st, diag = bgc.carbon_step(st, None, 1800.0, st.tracers[:, 0, 0],
                                        st.tracers[:, 0, 1], t(wind), 10, 11)
         return dict(out, ecosys_carbon=st.tracers, **diag)
-    fields = ocean_on_both(device, run)
+    fields = ocean_on_both(device, run, "bgc columns", 0)
     compare_scaled("bgc columns", fields, PHYS_RTOL)
     require(fields["cuda"]["npzd_dms"][..., 2:].min() >= 0.0
             and fields["cuda"]["ecosys_carbon"][..., 2:].min() >= 0.0,
@@ -2183,10 +2257,12 @@ def run_ocean_path(device, card):
     at dt = 300 s, in float32, through run_steps: host setup, copy to the
     card, one warm step, MAIN_STEPS timed steps, one run_steps call per
     step; the launch counters are zeroed just before the warm step and
-    read after every step."""
+    read after every step: K2 as the config implies and K3
+    VMIX_SOLVE_LAUNCHES_PER_STEP times a step."""
     from mpas_tpu_torch import kernels
     from mpas_tpu_torch.cores.ocean.core import (
-        run_steps, tinydot_launches_per_split_step)
+        VMIX_SOLVE_LAUNCHES_PER_STEP, run_steps,
+        tinydot_launches_per_split_step)
     name = "ocean_channel_10km"
     t0 = time.perf_counter()
     host = ocean_setup(32, 200, OCEAN_NZ, 300.0)
@@ -2202,10 +2278,11 @@ def run_ocean_path(device, card):
     print(f"{name} setup: {nc} cells x {grid.nz} levels, {mesh.nEdges} "
           f"edges, maxEdges {mesh.maxEdges}; host build {host_s:.2f} s, "
           f"copy to card {copy_s:.2f} s")
-    require((nc, grid.nz, mesh.maxEdges) == (OCEAN_CELLS, OCEAN_NZ, 6),
+    require((nc, mesh.nEdges, grid.nz, mesh.maxEdges)
+            == (OCEAN_CELLS, OCEAN_EDGES, OCEAN_NZ, 6),
             f"{name} built the wrong size")
 
-    k2 = tinydot_launches_per_split_step(cfg)
+    k2, k3 = tinydot_launches_per_split_step(cfg), VMIX_SOLVE_LAUNCHES_PER_STEP
     vol0, heat0 = ocean_volume_heat(grid, state)
     kernels.reset_launch_counts()
     per_step = []
@@ -2224,10 +2301,12 @@ def run_ocean_path(device, card):
 
     steps = MAIN_STEPS + 1
     require(counts["acoustic_cell_update"] == 0, counts)
-    k2_seen = [b["tinydot"] - a["tinydot"]
-               for a, b in zip([{"tinydot": 0}] + per_step, per_step)]
-    require(k2_seen == [k2] * steps,
-            f"K2 launches per step {k2_seen}, the config implies {k2}")
+    zero = {k: 0 for k in counts}
+    for kname, n in (("tinydot", k2), ("vmix_solve", k3)):
+        seen = [b[kname] - a[kname]
+                for a, b in zip([zero] + per_step, per_step)]
+        require(seen == [n] * steps,
+                f"{kname} launches per step {seen}, expected {n}")
     for k in ("u", "layerThickness", "tracers", "ubtr"):
         require(bool(torch.isfinite(getattr(state, k)).all()), k)
     vol1, heat1 = ocean_volume_heat(grid, state)
@@ -2245,7 +2324,7 @@ def run_ocean_path(device, card):
           f"GB; volume drift {vol_drift:.3e}, heat drift {heat_drift:.3e}, "
           f"max |S - 35| {s_err:.3e} (bound {s_tol:.3e}), max |u| on the "
           f"walls {u_wall:g}, max |u| {float(state.u.abs().max()):.4f} m/s; "
-          f"launches {counts} (per step: K1 0, K2 {k2})")
+          f"launches {counts} (per step: K1 0, K2 {k2}, K3 {k3})")
     require(vol_drift <= 1e-5, f"volume not conserved: {vol_drift:.3e}")
     require(heat_drift <= 1e-5, f"heat not conserved: {heat_drift:.3e}")
     require(s_err <= s_tol, f"salinity left 35: {s_err:.3e}")
@@ -2291,15 +2370,16 @@ def run_ocean_global_path(device, card, mesh64, profile=None):
     Host setup (its seconds), copy to the card, one warm step, MAIN_STEPS
     timed steps; the launch counters are zeroed just before the warm
     step. Gates: every field finite, volume conserved, BGC pools >= 0,
-    max |u| < 5 m/s, K2 tinydot_launches_per_split_step(cfg) times in
-    each step's dynamics and no K1, every particle in an ocean cell.
+    max |u| < 5 m/s, K2 tinydot_launches_per_split_step(cfg) times and K3
+    VMIX_SOLVE_LAUNCHES_PER_STEP times in each step's dynamics (and no K3
+    outside them), no K1, every particle in an ocean cell.
     Then one profiled step (kernels, busy, each part's device ms), each
     member's device ms and the driver's host ms, and the members and one
     particle step in float64 from the final state on the card and the
     CPU at PHYS_RTOL x max with the same NaN positions."""
     from mpas_tpu_torch import kernels
     from mpas_tpu_torch.cores.ocean.core import (
-        tinydot_launches_per_split_step)
+        VMIX_SOLVE_LAUNCHES_PER_STEP, tinydot_launches_per_split_step)
     from mpas_tpu_torch.ops.reconstruct import build_reconstruct_coeffs
     from mpas_tpu_torch.tools import ocean_global as og
     name, f32 = OCEAN_GLOBAL, torch.float32
@@ -2336,17 +2416,18 @@ def run_ocean_global_path(device, card, mesh64, profile=None):
             == (mesh64.nCells, OCEAN_GLOBAL_NZ, 12, 19),
             f"{name} built the wrong size")
 
-    k2 = tinydot_launches_per_split_step(cfg)
+    k2, k3 = tinydot_launches_per_split_step(cfg), VMIX_SOLVE_LAUNCHES_PER_STEP
     vol0 = og.volume(grid, state)
     box = {"state": state, "t": 0.0}
 
     def step(counts=None):
-        """One step of the path; counts (a list) gets the K2 launches of
-        its dynamics."""
-        before = kernels.launch_counts["tinydot"]
+        """One step of the path; counts (a list) gets the (K2, K3)
+        launches of its dynamics."""
+        before = dict(kernels.launch_counts)
         s = og.dynamics(grid, cfg, box["state"], forcing)
         if counts is not None:
-            counts.append(kernels.launch_counts["tinydot"] - before)
+            counts.append(tuple(kernels.launch_counts[k] - before[k]
+                                for k in ("tinydot", "vmix_solve")))
         s = og.bgc(grid, s, dt, sw)
         box["t"] += dt
         og.analysis(driver, grid, cfg, s, box["t"], forcing)
@@ -2355,13 +2436,13 @@ def run_ocean_global_path(device, card, mesh64, profile=None):
 
     kernels.reset_launch_counts()
     og.analysis(driver, grid, cfg, state, 0.0, forcing)
-    k2_seen = []
-    step(k2_seen)                                           # warm step
+    seen = []
+    step(seen)                                              # warm step
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     for _ in range(MAIN_STEPS):
-        step(k2_seen)
+        step(seen)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     counts = dict(kernels.launch_counts)
@@ -2369,9 +2450,11 @@ def run_ocean_global_path(device, card, mesh64, profile=None):
     state = box["state"]
 
     require(counts["acoustic_cell_update"] == 0, counts)
-    require(k2_seen == [k2] * (MAIN_STEPS + 1),
-            f"{name}: K2 launches per step's dynamics {k2_seen}, the config "
-            f"implies {k2}")
+    require(seen == [(k2, k3)] * (MAIN_STEPS + 1),
+            f"{name}: (K2, K3) launches per step's dynamics {seen}, "
+            f"expected {(k2, k3)}")
+    require(counts["vmix_solve"] == k3 * (MAIN_STEPS + 1),
+            f"{name}: K3 launched outside the dynamics: {counts}")
     for k in OCN_STATE:
         require(bool(torch.isfinite(getattr(state, k)).all()), k)
     vol_drift = abs(og.volume(grid, state) - vol0) / vol0
@@ -2390,8 +2473,8 @@ def run_ocean_global_path(device, card, mesh64, profile=None):
           f"{int(land_e.sum())} land edges {u_land:.4f} m/s (not held: "
           f"the reference's land columns keep 2 active levels, ROADMAP §3); "
           f"particles in ocean cells {in_ocean}; launches {counts} (per "
-          f"step's dynamics: K1 0, K2 {k2}; okuboWeiss adds one K2 on "
-          f"analysis steps)")
+          f"step's dynamics: K1 0, K2 {k2}, K3 {k3}; okuboWeiss adds one "
+          f"K2 on analysis steps)")
     require(vol_drift <= 1e-5, f"{name}: volume not conserved {vol_drift}")
     require(bgc_min >= 0.0, f"{name}: a negative BGC pool {bgc_min}")
     require(u_max < og.MAX_U, f"{name}: max |u| {u_max}")
@@ -3008,12 +3091,13 @@ def check_sharded_restart(name, satm, group, carry_l, run2, mesh):
 def run_sharded_ocean_path(device, card, host, ref, profile=None):
     """Phase 5c, ocean_channel_10km_4way: the channel sharded 4 ways,
     float32, loopback on the card, split-explicit; 245 K2 and no K1 a
-    step; volume and heat over owned cells; after the 11 steps the
-    gathered fields against ocean_channel_10km's at SHARD_REL_F32 on the
-    reference's measure."""
+    step, 2 K3 (one solve of the flat loopback layout); volume and heat
+    over owned cells; after the 11 steps the gathered fields against
+    ocean_channel_10km's at SHARD_REL_F32 on the reference's measure.
+    Returns (counts, the flat layout's (cells, edges), a stepper)."""
     from mpas_tpu_torch.cores.ocean import distributed as odist
     from mpas_tpu_torch.cores.ocean.core import (
-        tinydot_launches_per_split_step)
+        VMIX_SOLVE_LAUNCHES_PER_STEP, tinydot_launches_per_split_step)
     from mpas_tpu_torch.parallel.partition import sfc_partition
     from mpas_tpu_torch.parallel.runner import device_mesh, place
     name, f32 = "ocean_channel_10km_4way", torch.float32
@@ -3034,7 +3118,8 @@ def run_sharded_ocean_path(device, card, host, ref, profile=None):
     state_l, elapsed, counts, peak_gb, drift = step_sharded(
         name, device, lambda s: run1(grid_l, s, 1), state_l,
         {"acoustic_cell_update": 0,
-         "tinydot": tinydot_launches_per_split_step(cfg)},
+         "tinydot": tinydot_launches_per_split_step(cfg),
+         "vmix_solve": VMIX_SOLVE_LAUNCHES_PER_STEP},
         lambda s: odist.volume_heat(grid_l, s, mask, group))
     for k in ("u", "layerThickness", "tracers", "ubtr"):
         require(bool(torch.isfinite(getattr(state_l, k)).all()), k)
@@ -3052,7 +3137,7 @@ def run_sharded_ocean_path(device, card, host, ref, profile=None):
     step = stepper(lambda s: run1(grid_l, s, 1), state_l)
     if profile:
         profile_steps(name, step, profile)
-    return counts, grid_l.mesh.nCells, step
+    return counts, (grid_l.mesh.nCells, grid_l.mesh.nEdges), step
 
 
 def profile_steps(name, step, out_dir, wrap=(), steps=3):
@@ -3313,10 +3398,11 @@ def run_cli_jw_path(device, card, direct_ms):
 
 
 def run_cli_small_path(device, card, hooks, cfg, spec, argv, steps, k2,
-                       direct_step):
+                       direct_step, k3=0):
     """sw or ocean through the command line (`argv` gives it cfg's dt and
     `steps` steps): the final output held to direct_step(run, steps) from
-    hooks.setup(cfg) at CLI_REL, K2 launches `k2` a step and no K1."""
+    hooks.setup(cfg) at CLI_REL, K2 launches `k2` and K3 `k3` a step and
+    no K1."""
     from mpas_tpu_torch.io.netcdf import read_netcdf
     core = hooks.name
     name = f"{core} --mesh {spec}"
@@ -3336,7 +3422,8 @@ def run_cli_small_path(device, card, hooks, cfg, spec, argv, steps, k2,
               f"files: {cli_sizes(d)}; launches {counts}")
         print(f"{name} timer table:\n{table}")
     require(counts["acoustic_cell_update"] == 0
-            and counts["tinydot"] == k2 * steps, f"{name}: {counts}")
+            and counts["tinydot"] == k2 * steps
+            and counts["vmix_solve"] == k3 * steps, f"{name}: {counts}")
     direct, direct_s = cli_direct(hooks, cfg, spec, device,
                                   lambda run: direct_step(run, steps))
     print(f"{name}: the direct run_steps from HOOKS.setup "
@@ -3362,9 +3449,10 @@ def run_cli_sw_path(device, card):
 def run_cli_ocean_path(device, card):
     """ocean_channel_10km through the command line: the channel on
     channel:32,200,10000, 20 levels, 4 split-explicit steps of the
-    default 300 s (245 K2 a step, from the config)."""
+    default 300 s (245 K2 a step, from the config, and 2 K3)."""
     from mpas_tpu_torch.cores.ocean.core import (
-        run_steps, tinydot_launches_per_split_step)
+        VMIX_SOLVE_LAUNCHES_PER_STEP, run_steps,
+        tinydot_launches_per_split_step)
     from mpas_tpu_torch.cores.ocean.hooks import HOOKS
     cfg = HOOKS.config_cls()
 
@@ -3373,7 +3461,8 @@ def run_cli_ocean_path(device, card):
     return run_cli_small_path(device, card, HOOKS, cfg,
                               "channel:32,200,10000",
                               ["--duration", "0:20:00"], 4,
-                              tinydot_launches_per_split_step(cfg), step)
+                              tinydot_launches_per_split_step(cfg), step,
+                              VMIX_SOLVE_LAUNCHES_PER_STEP)
 
 
 def run_cli_file_path(device, card, grid_path):
@@ -4247,7 +4336,8 @@ def main():
     kernel_results.update(timed(
         "kernel parity and device time at jw_120km_4way's flat shapes",
         check_kernels, device, (("jw_120km_4way", flat_nc, 26),),
-        (("jw_120km_4way", flat_nc, ((6, 6, 26), (6, 6, 52), (3, 6, 26))),)))
+        (("jw_120km_4way", flat_nc, ((6, 6, 26), (6, 6, 52), (3, 6, 26))),),
+        ()))
     sw = timed("sw_tc5_120km", run_sw_path, device, card, mesh64)
     counts["sw_tc5_120km"] = sw[-1]
     if args.profile:
@@ -4304,7 +4394,7 @@ def main():
                                              cfg.config_dt)
         profile_steps("ocean_channel_10km", ocean_step, args.profile)
     ocean_ref = {k: getattr(state, k).cpu().numpy() for k, _ in OCN_FIELDS}
-    counts["ocean_channel_10km_4way"], flat_nc, ocean4_step = timed(
+    counts["ocean_channel_10km_4way"], (flat_nc, flat_ne), ocean4_step = timed(
         "ocean_channel_10km_4way", run_sharded_ocean_path, device, card,
         ocean_host, ocean_ref, args.profile)
     from mpas_tpu_torch.cores.ocean.core import ocn_timestep
@@ -4316,7 +4406,9 @@ def main():
         "kernel parity and device time at ocean_channel_10km_4way's flat "
         "shapes", check_kernels, device, (),
         (("ocean_channel_10km_4way", flat_nc, ((6, 6, 1), (6, 6, 20),
-                                               (6, 6, 40))),)))
+                                               (6, 6, 40))),),
+        (("ocean_channel_10km_4way", flat_nc, OCEAN_NZ, 2, False),
+         ("ocean_channel_10km_4way", flat_ne, OCEAN_NZ, 1, False))))
     counts[OCEAN_GLOBAL] = timed(OCEAN_GLOBAL, run_ocean_global_path, device,
                                  card, mesh64, args.profile)
     counts["jw_120km_numberings"] = timed(
@@ -4385,11 +4477,14 @@ def main():
     sources = {"acoustic_cell_update": ("mpas_tpu_torch/csrc/acoustic.cu",
                                         "mpas_tpu/kernels/acoustic.py:146"),
                "tinydot": ("mpas_tpu_torch/csrc/tinydot.cu",
-                           "mpas_tpu/kernels/tinydot.py:44")}
+                           "mpas_tpu/kernels/tinydot.py:44"),
+               "vmix_solve": ("mpas_tpu_torch/csrc/vmix.cu",
+                              "none: mpas_tpu/cores/ocean/core.py:"
+                              "implicit_vertical_mix's loop, left to XLA")}
     print(f"card: {card}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": sum(c[name] for c in counts.values()),
+         "launches": sum(c.get(name, 0) for c in counts.values()),
          **numbers[name]}
         for name, (src, rep) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,7 @@ The MPAS-Ocean forward-mode essentials (ref: src/core_ocean/mode_forward
   equation of state   <- ocn_equation_of_state_linear (or JM, eos.py)
   vertical mixing     <- ocn_vmix implicit solves (mpas_ocn_vmix.F) with
                          the coefficients of vmix.py, Thomas algorithm
+                         (kernel K3 on the card, kernels/vmix.py)
   RK4 integrator      <- mpas_ocn_time_integration_rk4.F:74
   split-explicit      <- mpas_ocn_time_integration_split.F:82-1926:
                          baroclinic predictor iterations + barotropic
@@ -43,9 +44,9 @@ from mpas_tpu_torch.cores.ocean.forcing import (surface_stress_tend,
 from mpas_tpu_torch.cores.ocean.state import OcnGrid, OcnState
 from mpas_tpu_torch.cores.ocean.vmix import build_coefs
 from mpas_tpu_torch.framework.timers import span, spanned
+from mpas_tpu_torch.kernels.vmix import vmix_solve
 from mpas_tpu_torch.mesh.mesh import Mesh
 from mpas_tpu_torch.ops import stencils as st
-from mpas_tpu_torch.ops.matrix import tridiagonal_solve
 
 
 def build_level_masks(mesh, maxLevelCell, nz, dtype=np.float64):
@@ -249,44 +250,23 @@ def implicit_vertical_mix(grid: OcnGrid, cfg: OcnConfig, state: OcnState,
         vert_diff = vert_diff + gm.redi_vertical_enhancement(
             grid, cfg, rho, state.layerThickness)
 
-    def solve(field, h_field, kappa, bottom_drag=0.0, mask=None):
-        # interface diffusivity flux kappa/dz_int between layers; dead
-        # interfaces (below maxLevel) carry no mixing, so the bottom is a
-        # no-flux wall wherever the bathymetry sits
-        hi = torch.clamp(0.5 * (h_field[..., 1:] + h_field[..., :-1]),
-                         min=1e-12)
-        if mask is not None:
-            kappa = kappa * mask[..., 1:]
-        g = dt * kappa / hi
-        gu = F.pad(g, (1, 0))                # above-interface coefficient
-        gl = F.pad(g, (0, 1))                # below-interface coefficient
-        h_safe = torch.clamp(h_field, min=1e-12)
-        a = -gu / h_safe
-        c = -gl / h_safe
-        b = 1.0 - a - c
-        if bottom_drag > 0.0:
-            # quadratic bottom drag, linearized (ref:
-            # ocn_vel_forcing_bottomdrag) at the true bottom layer: the
-            # last live level of each column, not index nz-1
-            if mask is None:
-                spd = field[..., -1].abs()
-                b[..., -1] += dt * bottom_drag * spd / h_safe[..., -1]
-            else:
-                below = F.pad(mask[..., 1:], (0, 1))
-                bottom = mask * (1.0 - below)          # one-hot bottom level
-                spd_b = (field.abs() * bottom).sum(-1, keepdim=True)
-                b = b + bottom * dt * bottom_drag * spd_b / h_safe
-        return tridiagonal_solve(a, b, c, field)
-
+    # the backward-Euler solves, one launch each on the card (K3), the
+    # Thomas loop of vmix_solve_plain on the CPU
     h_edge = st.cell_to_edge_mean(mesh, state.layerThickness)
-    u_new = solve(state.u, h_edge, vert_visc,
-                  cfg.config_bottom_drag_coeff, mask=grid.edgeMask)
-    tr_new = torch.stack(
-        [solve(state.tracers[..., i], state.layerThickness, vert_diff,
-               mask=grid.cellMask)
-         for i in range(state.tracers.shape[-1])], dim=-1)
-    return dataclasses.replace(
-        state, u=u_new * (1.0 - mesh.boundaryEdge)[:, None], tracers=tr_new)
+    with span("ocn.vmix_solve"):
+        u_new = vmix_solve(state.u, h_edge, vert_visc, dt,
+                           mask=grid.edgeMask,
+                           bottom_drag=cfg.config_bottom_drag_coeff,
+                           boundary=mesh.boundaryEdge)
+        tr_new = vmix_solve(state.tracers, state.layerThickness, vert_diff,
+                            dt, mask=grid.cellMask)
+    return dataclasses.replace(state, u=u_new, tracers=tr_new)
+
+
+# K3 launches of one ocn_timestep on the card, under either integrator and
+# every config: implicit_vertical_mix's velocity solve and its one solve of
+# all tracers
+VMIX_SOLVE_LAUNCHES_PER_STEP = 2
 
 
 _RK_W = (1.0 / 6.0, 1.0 / 3.0, 1.0 / 3.0, 1.0 / 6.0)

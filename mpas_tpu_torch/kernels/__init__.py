@@ -3,14 +3,14 @@
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 PyTorch version for CPU tensors; it raises on anything else. Every launch
 adds one to `launch_counts[name]`, so a run can show which kernels its
-path went through. Both kernels run one block per tile of consecutive
+path went through. Each kernel runs one block per tile of consecutive
 columns or cells; `fit_tile` sizes a tile to a shared-memory budget.
 """
 
-launch_counts = {"acoustic_cell_update": 0, "tinydot": 0}
+launch_counts = {"acoustic_cell_update": 0, "tinydot": 0, "vmix_solve": 0}
 
 SMEM_LIMIT = 232_448   # shared memory a block may use on the H100
-MAX_THREADS = 256      # both kernels' __launch_bounds__(256)
+MAX_THREADS = 256      # the kernels' __launch_bounds__(256)
 
 
 def reset_launch_counts():

@@ -47,6 +47,12 @@ _SIGNATURES = {
     "mpas_tinydot": [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                      ctypes.c_longlong, _P, _P, _P, _P],
+    # (device, n, nz, ntr, cols, threads, smem, dt, drag, field, h, kappa,
+    #  mask, boundary, out, stream)
+    "mpas_vmix_solve": [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_longlong, ctypes.c_double, ctypes.c_double,
+                        _P, _P, _P, _P, _P, _P, _P],
 }
 
 

@@ -15,9 +15,15 @@ layouts of jw_120km and ocean_channel_10km sharded 4 ways: 48,420 and
 Beyond those, the tiled kernels' edge cases: column and cell counts that
 no tile size divides, level counts from 2 to 500 (where K1's tile
 shrinks), and operands that start one element into their storage.
+K3 (the ocean's vertical-mix solve) at ocean_global_120km's tracer
+(40,962 x 60 x 12) and velocity (122,880 x 60, bottom drag and boundary
+row) solves and the channel's (6,336 cells, 10-40 levels; unmasked as it
+runs, and at its flat layout sharded 4 ways), with dead and one-level
+columns, no mask, level counts from 2 to 100 and column counts that no
+tile divides.
 Tolerances: float64 1e-12 x max|plain| (summation order only); float32
-1e-5 for K1, whose Thomas recurrence amplifies differently contracted
-FMAs, 1e-6 for K2.
+1e-5 for K1 and K3, whose Thomas recurrences amplify differently rounded
+products, 1e-6 for K2.
 """
 
 import ctypes
@@ -33,6 +39,8 @@ from mpas_tpu_torch.kernels.acoustic import (acoustic_cell_update,
                                              example_args)
 from mpas_tpu_torch.kernels.build import load_library
 from mpas_tpu_torch.kernels.tinydot import tinydot, tinydot_plain
+from mpas_tpu_torch.kernels import vmix
+from mpas_tpu_torch.kernels.vmix import vmix_solve, vmix_solve_plain
 
 # (nC, nz) per path, K1 at real_120km's 55 levels, and at the flat
 # loopback layout of jw_120km sharded 4 ways (4 x 12,105 padded cells)
@@ -48,6 +56,19 @@ K2_SHAPES = [(nc, P, mE, K) for nc, nz, mE in ((40962, 26, 6),
     + [(6336, 6, 6, K) for K in (1, 20, 40)] \
     + [(48420, P, 6, K) for P, K in ((6, 26), (6, 52), (3, 26))] \
     + [(9940, 6, 6, K) for K in (1, 20, 40)]
+
+# (n, nz, ntr, masked, bottom drag) of K3: ocean_global_120km's tracer and
+# velocity solves (ntr 0: a 2-D field with a boundary row), the channel's
+# tracers at 10, 20 and 40 levels and its unmasked edges with drag; then
+# the channel as it runs (no mask: 6,336 cells, 19,072 edges, 20 levels)
+# and its flat loopback layout sharded 4 ways (9,940 cells, 31,800 edges)
+K3_CASES = [(40962, 60, 12, True, 0.0), (122880, 60, 0, True, 1e-3),
+            (122880, 60, 0, True, 0.0), (6336, 10, 2, False, 0.0),
+            (6336, 20, 2, True, 0.0), (6336, 40, 2, True, 0.0),
+            (19008, 20, 0, False, 1e-3), (6336, 20, 2, False, 0.0),
+            (19072, 20, 0, False, 1e-3), (9940, 20, 2, False, 0.0),
+            (31800, 20, 0, False, 1e-3)]
+F64_F32_K3 = [(torch.float64, 1e-12), (torch.float32, 1e-5)]
 
 
 @pytest.fixture
@@ -166,8 +187,64 @@ def test_tinydot_kernel_ragged_and_offset(cuda_device, K, offset, dtype,
     assert_close([got], [tinydot_plain(w, x)], rel)
 
 
+def k3_args(device, dtype, n, nz, ntr, masked, seed=0, max_level=None):
+    """K3's seeded arguments on the card: field, h, kappa, mask (or None)
+    and, for a 2-D field, the boundary row."""
+    a = vmix.example_args(n, nz, ntr, seed)
+    if max_level is not None:
+        a["mask"] = (np.arange(nz)[None, :]
+                     < max_level[:, None]).astype(np.float64)
+    a = {k: torch.from_numpy(v).to(device, dtype) for k, v in a.items()}
+    if not masked:
+        a["mask"] = None
+    if ntr:
+        a["boundary"] = None
+    return a
+
+
+def run_k3(a, drag):
+    kernels.reset_launch_counts()
+    got = vmix_solve(a["field"], a["h"], a["kappa"], 900.0, a["mask"], drag,
+                     a["boundary"])
+    assert kernels.launch_counts["vmix_solve"] == 1
+    want = vmix_solve_plain(a["field"], a["h"], a["kappa"], 900.0, a["mask"],
+                            drag, a["boundary"])
+    return got, want
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["acoustic_cell_update", "tinydot"])
+@pytest.mark.parametrize("n,nz,ntr,masked,drag", K3_CASES)
+@pytest.mark.parametrize("dtype,rel", F64_F32_K3)
+def test_vmix_kernel_matches_plain(cuda_device, n, nz, ntr, masked, drag,
+                                   dtype, rel):
+    got, want = run_k3(k3_args(cuda_device, dtype, n, nz, ntr, masked), drag)
+    assert_close([got], [want], rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nz", [2, 3, 37, 100])
+@pytest.mark.parametrize("n", [1, 33, 1001])
+@pytest.mark.parametrize("ntr,drag", [(0, 1e-3), (12, 0.0)])
+@pytest.mark.parametrize("dtype,rel", F64_F32_K3)
+def test_vmix_kernel_edge_columns(cuda_device, nz, n, ntr, drag, dtype, rel):
+    """Every maxLevel from 0 (a dead column: x = d) and 1 (one live
+    level) to nz, column counts that no tile divides, 2 to 100 levels;
+    dead levels return their right-hand side exactly."""
+    max_level = np.arange(n) % (nz + 1)
+    a = k3_args(cuda_device, dtype, n, nz, ntr, True, seed=nz,
+                max_level=max_level)
+    got, want = run_k3(a, drag)
+    assert_close([got], [want], rel)
+    rhs = a["field"] if ntr else a["field"] * (1.0 - a["boundary"])[:, None]
+    dead = a["mask"] == 0
+    if ntr:
+        dead = dead[..., None].expand_as(rhs)
+    assert torch.equal(got[dead], rhs[dead])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["acoustic_cell_update", "tinydot",
+                                  "vmix_solve"])
 @pytest.mark.parametrize("fault", ["smem", "threads"])
 def test_launchers_refuse_a_plan_that_is_not_their_layout(cuda_device, name,
                                                           fault):
@@ -191,7 +268,7 @@ def test_launchers_refuse_a_plan_that_is_not_their_layout(cuda_device, name,
             return lib.mpas_acoustic_cell_update_f32(
                 cuda_device.index, 33, 26, cols, threads, smem, 0.1,
                 120.0, ins, ptr_out, stream)
-    else:
+    elif name == "tinydot":
         cols, threads, smem = k2.plan(6, 6, 52, 4)
         w = torch.ones(33, 6, 6, device=cuda_device)
         x = torch.ones(33, 6, 52, device=cuda_device)
@@ -201,6 +278,17 @@ def test_launchers_refuse_a_plan_that_is_not_their_layout(cuda_device, name,
             return lib.mpas_tinydot_f32(
                 cuda_device.index, 33, 6, 6, 52, cols, threads, smem,
                 w.data_ptr(), x.data_ptr(), outs[0].data_ptr(), stream)
+    else:
+        cols, threads, smem = vmix.plan(60, 12, 4)
+        a = k3_args(cuda_device, torch.float32, 33, 60, 12, True)
+        outs = [torch.zeros_like(a["field"])]
+
+        def call(threads, smem):
+            return lib.mpas_vmix_solve_f32(
+                cuda_device.index, 33, 60, 12, cols, threads, smem, 900.0,
+                0.0, a["field"].data_ptr(), a["h"].data_ptr(),
+                a["kappa"].data_ptr(), a["mask"].data_ptr(), None,
+                outs[0].data_ptr(), stream)
     bad = call(512, smem) if fault == "threads" else call(threads, smem + 16)
     torch.cuda.synchronize()
     assert bad == 1
@@ -227,6 +315,23 @@ def test_wrappers_refuse_bad_cuda_input(cuda_device):
          for k, v in example_args(8, 1).items()}
     with pytest.raises(ValueError):     # nz < 2
         acoustic_cell_update(1, 0.1, 120.0, **a)
+    a = k3_args(cuda_device, torch.float32, 8, 20, 3, True)
+    f, h, kappa, mask = a["field"], a["h"], a["kappa"], a["mask"]
+    with pytest.raises(ValueError):     # a CPU operand beside CUDA ones
+        vmix_solve(f, h.cpu(), kappa, 900.0, mask)
+    with pytest.raises(ValueError):     # a strided view
+        vmix_solve(f, h, kappa.t().contiguous().t(), 900.0, mask)
+    with pytest.raises(ValueError):
+        vmix_solve(f.transpose(1, 2).contiguous().transpose(1, 2), h, kappa,
+                   900.0, mask)
+    with pytest.raises(ValueError):     # another dtype
+        vmix_solve(f, h.double(), kappa, 900.0, mask)
+    with pytest.raises(TypeError):
+        vmix_solve(f.half(), h.half(), kappa.half(), 900.0, mask.half())
+    with pytest.raises(ValueError):     # drag on more than one rhs
+        vmix_solve(f, h, kappa, 900.0, mask, bottom_drag=1e-3)
+    with pytest.raises(ValueError):     # kappa not at the inner interfaces
+        vmix_solve(f, h, h, 900.0, mask)
 
 
 @pytest.mark.cuda
@@ -256,10 +361,12 @@ def test_one_dimensional_trisk_goes_through_k2(cuda_device, op):
 def test_ocean_split_step_launches_k2_as_the_config_implies(cuda_device):
     """One split_step of the small baroclinic channel on the card launches
     K2 exactly as often as its config implies (245 times: 240 in the
-    barotropic subcycles), no K1, and agrees with the CPU's plain path at
+    barotropic subcycles), K3 twice (the vertical mix's velocity and
+    tracer solves), no K1, and agrees with the CPU's plain path at
     1e-9 x max|CPU| (chip_smoke.py's bound for the card-vs-CPU runs)."""
     from mpas_tpu_torch.cores.ocean.core import (
-        OcnConfig, split_step, tinydot_launches_per_split_step)
+        VMIX_SOLVE_LAUNCHES_PER_STEP, OcnConfig, split_step,
+        tinydot_launches_per_split_step)
     from mpas_tpu_torch.cores.ocean.init_channel import (
         init_baroclinic_channel)
     from mpas_tpu_torch.mesh.planar import channel_hex_mesh
@@ -273,8 +380,10 @@ def test_ocean_split_step_launches_k2_as_the_config_implies(cuda_device):
                      state.to(cuda_device, torch.float64), cfg.config_dt)
     assert kernels.launch_counts == {
         "acoustic_cell_update": 0,
-        "tinydot": tinydot_launches_per_split_step(cfg)}
+        "tinydot": tinydot_launches_per_split_step(cfg),
+        "vmix_solve": VMIX_SOLVE_LAUNCHES_PER_STEP}
     assert tinydot_launches_per_split_step(cfg) == 245
+    assert VMIX_SOLVE_LAUNCHES_PER_STEP == 2
     for k in ("u", "layerThickness", "tracers", "ubtr"):
         assert_close([getattr(got, k).cpu()], [getattr(want, k)], 1e-9)
 
@@ -320,7 +429,7 @@ def test_mesoref_step_on_the_card_matches_the_cpu(cuda_device):
                                                coeffs.to(dev), 12.0, 1,
                                                pcfg=pcfg)
     assert kernels.launch_counts == {"acoustic_cell_update": 12,
-                                     "tinydot": 30}
+                                     "tinydot": 30, "vmix_solve": 0}
     (c_cpu, p_cpu), (c_gpu, p_gpu) = out["cpu"], out["cuda"]
     for k in ("u", "w", "theta_m", "rho_zz", "scalars"):
         assert_close([getattr(c_gpu.state, k).cpu()],
@@ -380,7 +489,8 @@ def test_convperm_and_kf_steps_on_the_card_match_the_cpu(cuda_device,
                                                coeffs.to(dev), 12.0, 1,
                                                pcfg=pcfg, gmt_hours=7.0)
     assert kernels.launch_counts == {"acoustic_cell_update": 12,
-                                     "tinydot": 36 if convperm else 30}
+                                     "tinydot": 36 if convperm else 30,
+                                     "vmix_solve": 0}
     (c_cpu, p_cpu), (c_gpu, p_gpu) = out["cpu"], out["cuda"]
     for k in ("u", "w", "theta_m", "rho_zz"):
         assert_close([getattr(c_gpu.state, k).cpu()],
@@ -444,7 +554,7 @@ def test_cam_step_on_the_card_matches_the_cpu(cuda_device):
                                                coeffs.to(dev), 12.0, 1,
                                                pcfg=pcfg, gmt_hours=7.0)
     assert kernels.launch_counts == {"acoustic_cell_update": 12,
-                                     "tinydot": 30}
+                                     "tinydot": 30, "vmix_solve": 0}
     (c_cpu, p_cpu), (c_gpu, p_gpu) = out["cpu"], out["cuda"]
     for k in ("u", "w", "theta_m", "rho_zz", "scalars"):
         assert_close([getattr(c_gpu.state, k).cpu()],
@@ -551,7 +661,7 @@ def test_real_data_steps_on_the_card_match_the_cpu(cuda_device, tmp_path):
         out[dev.type] = run_steps(g, cfg, carry, cfg.config_dt, 3)
         if dev.type == "cuda":
             assert kernels.launch_counts == {"acoustic_cell_update": 36,
-                                             "tinydot": 45}
+                                             "tinydot": 45, "vmix_solve": 0}
     for k in ("u", "w", "theta_m", "rho_zz", "scalars"):
         assert_close([getattr(out["cuda"].state, k).cpu()],
                      [getattr(out["cpu"].state, k)], 1e-11)

@@ -12,7 +12,7 @@ memory is not their kernel's layout (tests/test_torch_cuda.py).
 import pytest
 
 from mpas_tpu_torch import kernels
-from mpas_tpu_torch.kernels import acoustic, tinydot
+from mpas_tpu_torch.kernels import acoustic, tinydot, vmix
 
 # (P, I, K) of every path's contractions: jw_120km, supercell_2km,
 # jw_var60_15 (TRiSK at nz and 2*nz, second derivatives at nz), the
@@ -104,3 +104,34 @@ def test_tinydot_plan_refuses_what_the_kernel_does_not_take():
         tinydot.plan(6, tinydot.MAX_I + 1, 26, 4)
     with pytest.raises(ValueError):
         tinydot.plan(6, 6, 10000, 8)     # one cell's x is 480 KB
+
+
+@pytest.mark.parametrize("n,nz,ntr,values", [(40962, 60, 12, 1619),
+                                             (122880, 60, 1, 299),
+                                             (6336, 20, 2, 139)])
+def test_vmix_values_per_column_hand_count(n, nz, ntr, values):
+    # the field read and written (2 nz ntr), h and the mask (nz each) and
+    # the nz - 1 inner-interface diffusivities
+    assert vmix.bytes_moved(n, nz, ntr, 4) == 4 * n * values
+
+
+@pytest.mark.parametrize("n,nz,ntr,values", [(6336, 20, 2, 119),
+                                             (19072, 20, 1, 79)])
+def test_vmix_values_per_column_hand_count_without_a_mask(n, nz, ntr,
+                                                          values):
+    # the channel's grid has no level mask: the field read and written,
+    # h (nz) and the nz - 1 inner-interface diffusivities
+    assert vmix.bytes_moved(n, nz, ntr, 4, masked=False) == 4 * n * values
+
+
+@pytest.mark.parametrize("nz,ntr,itemsize,plan", [
+    (60, 12, 4, (8, 128, 29696)), (60, 1, 4, (24, 128, 23040)),
+    (20, 2, 4, (24, 128, 12096)), (60, 12, 8, (4, 128, 29376))])
+def test_vmix_plan_examples(nz, ntr, itemsize, plan):
+    assert vmix.plan(nz, ntr, itemsize) == plan
+
+
+@pytest.mark.parametrize("nz,ntr", [(0, 1), (129, 1), (60, 0)])
+def test_vmix_plan_refuses_what_the_kernel_does_not_take(nz, ntr):
+    with pytest.raises(ValueError):
+        vmix.plan(nz, ntr, 4)

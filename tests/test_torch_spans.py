@@ -138,6 +138,7 @@ def test_ocean_step_spans_and_bitwise_outputs():
     assert spans == {
         "ocn.timestep": 1, "ocn.forcing": 1, "ocn.baroclinic": n_ts,
         "ocn.barotropic": n_ts, "ocn.update": n_ts, "ocn.vertical_mix": 1,
+        "ocn.vmix_solve": 1,
         "ocn.bgc": 2, "ocn.particles": 5, **members}
     for a, b in zip(plain[1], traced[1]):
         assert a.keys() == b.keys()

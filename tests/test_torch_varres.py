@@ -220,4 +220,5 @@ def test_varres_steps_conserve_dry_mass(slice_runs):
     m1 = float((out.state.rho_zz * area).sum())
     assert abs(m1 - m0) <= 1e-12 * m0
     # CPU tensors take the plain versions: no kernel launch is counted
-    assert counts == {"acoustic_cell_update": 0, "tinydot": 0}
+    assert counts == {"acoustic_cell_update": 0, "tinydot": 0,
+                      "vmix_solve": 0}
