@@ -20,6 +20,13 @@ own number, max |program - reference| / max |reference|: start_<field>
 and step_<field> (a traffic's limits name those it compares);
 step_k2 holds each K2 contraction of the sampled step to a float64 einsum
 of its own inputs (benchmark/harness/calls.py).
+
+Over P > 1 ranks (build's `group`, benchmark/harness/ranks.py) each rank
+runs its shard of the same program through the port's sharded path,
+cores/atmosphere/distributed.py, as chip_smoke.py:check_nccl_exchange
+runs it (ShardedJwCase); the initial carry is made and cut on the host,
+so a card holds its shard only, and the check reads the state gathered
+to rank 0 after the window.
 """
 
 from __future__ import annotations
@@ -179,10 +186,145 @@ def gaps(prefix, got, ref):
     return out
 
 
-def build(params, traffic, seed, device, control=False, host=None):
+def host_carry(impl, params, traffic, inputs, dtype, host):
+    """The global initial carry as JwCase makes it, on the host (CPU) in
+    `dtype`: where the whole globe fits at any mesh size. The inputs are
+    the ones make_inputs drew on the card."""
+    cpu = torch.device("cpu")
+    return JwCase(impl, params, traffic,
+                  {k: v.to(cpu) for k, v in inputs.items()}, cpu, dtype,
+                  host=host).carry
+
+
+class _OnThisRank:
+    """carry_restart_fields' group where each rank keeps its own part:
+    the shard's field as numpy on the host, no collective."""
+
+    @staticmethod
+    def stack(local):
+        return local.detach().cpu().numpy()
+
+
+class ShardedJwCase:
+    """One rank's shard of the program's run over group.size ranks: the
+    global initial carry made on the host (host_carry), cut there by the
+    port's Morton partition into shards with ATM_HALO_DEPTH halo layers
+    (distributed.shard_atm_grid, shard_atm_carry), and only this rank's
+    shard moved to its device in `dtype`; step() is one srk3_step with
+    the halo exchanges of the port's ShardExchange over the process
+    group. snapshot() is a copy of this rank's shard on its device, with
+    no collective and no wait; gather(snapshot), which every rank takes
+    after the window, sends each shard's owned entities to rank 0 over
+    the host group (group.host) and returns the global carry there, on
+    its device, None elsewhere. finite() reads this rank's shard.
+    group.rank None: every shard in this process, the port's loopback
+    layout."""
+
+    def __init__(self, impl, params, traffic, inputs, device, dtype, group,
+                 host):
+        from mpas_tpu_torch.cores.atmosphere import distributed as adist
+        from mpas_tpu_torch.parallel.partition import sfc_partition
+        from mpas_tpu_torch.parallel.runner import (ShardExchange,
+                                                    ShardGroup, place)
+        self.impl, self.device, self.dtype = impl, device, dtype
+        self.k2_sites = impl.k2_sites
+        self.cfg, grid = host[0], host[1]
+        self.dt = params["dt_s"]
+        carry = host_carry(impl, params, traffic, inputs, dtype, host)
+        self.satm = adist.shard_atm_grid(grid, sfc_partition(grid.mesh,
+                                                             group.size))
+        self.group = ShardGroup(group.size, device, group.rank)
+        self.host = getattr(group, "host", None)
+        self.grid = self.satm.local(self.group, dtype)
+        self.carry = place(adist.shard_atm_carry(self.satm, carry),
+                           self.group, dtype)
+        self.xch = ShardExchange(self.satm.smesh, self.group)
+        m = grid.mesh
+        self.counts = {"cell": m.nCells, "edge": m.nEdges,
+                       "vertex": m.nVertices}
+        self.steps_done = 0
+
+    def step(self):
+        self.carry = self.impl.ti.srk3_step(self.grid, self.cfg, self.carry,
+                                            self.dt, xch=self.xch)
+        self.steps_done += 1
+
+    def checkable(self):
+        return True
+
+    def snapshot(self):
+        return clone(self.carry)
+
+    def gather(self, snap):
+        import numpy as np
+        import torch.distributed as dist
+
+        from mpas_tpu_torch.cores.atmosphere import distributed as adist
+        from mpas_tpu_torch.parallel.runner import gather_field
+        if self.group.loopback:
+            fields, kinds = adist.carry_restart_fields(snap, self.group)
+        else:
+            mine, kinds = adist.carry_restart_fields(snap, _OnThisRank)
+            parts = [None] * self.group.n_parts if self.group.rank == 0 \
+                else None
+            dist.gather_object(mine, parts, dst=0, group=self.host)
+            if self.group.rank != 0:
+                return None
+            fields = {k: np.stack([p[k] for p in parts]) for k in mine}
+        whole = {k: gather_field(self.satm.smesh, v, kinds[k],
+                                 self.counts[kinds[k]])
+                 for k, v in fields.items()}
+        return adist.carry_from_restart_fields(whole).to(self.device,
+                                                         self.dtype)
+
+    def finite(self):
+        return all(bool(torch.isfinite(getattr(self.carry.state, k)).all())
+                   for k in FIELDS)
+
+    def release(self):
+        self.grid = self.carry = self.xch = None
+
+
+def prepare(params, traffic):
+    """What the ranks of a run over several cards read, made once before
+    they start: the mesh file."""
+    mesh_path(params)
+
+
+def build_sharded(params, traffic, seed, device, group):
+    """This rank's ShardedJwCase of the program in the configuration's
+    dtype; the inputs drawn on the host, as nothing global goes to the
+    card, and handed to the check on it."""
+    impl = program_impl()
+    parts = Parts(device)
+    path = mesh_path(params)
+    parts.mark("mesh_file")
+    mesh = impl.load_mesh(str(path))
+    parts.mark("mesh_load")
+    host = host_init(impl, params, traffic, mesh)
+    parts.mark("host_init")
+    inputs = make_inputs(params, seed, torch.device("cpu"))
+    parts.mark("inputs")
+    case = ShardedJwCase(impl, params, traffic, inputs, device,
+                         getattr(torch, params["dtype"]), group, host)
+    parts.mark("shard")
+    case.inputs = {k: v.to(device) for k, v in inputs.items()}
+    for _ in range(traffic["warm_steps"]):
+        case.step()
+    parts.mark("warm_steps")
+    case.setup_parts = parts.seconds
+    return case
+
+
+def build(params, traffic, seed, device, control=False, host=None,
+          group=None):
     """The run's case: the program in float32, or, for the control, the
     reference in its place in float32 with its K2 contractions in TF32;
-    host: host_init's result for that side, where the caller has it."""
+    host: host_init's result for that side, where the caller has it;
+    group: this rank's place in a run over several cards, where the cell
+    has them (build_sharded)."""
+    if group is not None:
+        return build_sharded(params, traffic, seed, device, group)
     impl = reference_impl() if control else program_impl()
     parts = Parts(device)
     path = mesh_path(params)

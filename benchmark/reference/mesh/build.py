@@ -29,6 +29,32 @@ from benchmark.reference.mesh.mesh import Mesh
 PAD = 0  # padded index slots point at entity 0 and carry zero weight
 
 
+def ragged_index(lengths):
+    """(row, column) of every entry of ragged rows of these lengths, row
+    by row."""
+    lengths = np.asarray(lengths, dtype=np.int64)
+    row = np.repeat(np.arange(lengths.size), lengths)
+    return row, np.arange(row.size) - np.repeat(np.cumsum(lengths)
+                                                - lengths, lengths)
+
+
+def padded(flat, lengths):
+    """The ragged rows (concatenated in `flat`) as a (rows, longest) array,
+    PAD after each row's end."""
+    out = np.full((lengths.size, int(lengths.max())), PAD, dtype=np.int64)
+    out[np.arange(out.shape[1])[None, :] < lengths[:, None]] = flat
+    return out
+
+
+def by_length(lengths):
+    """(length, its rows in order) for each nonzero length of ragged rows.
+    numpy reduces each row of a (rows, length) block as it reduces that
+    row alone, so a block gives the bits a loop over the rows gives."""
+    for n in np.unique(lengths):
+        if n:
+            yield int(n), np.flatnonzero(lengths == n)
+
+
 def _sphere_arc(p, q):
     """Great-circle distance between unit vectors (last axis 3)."""
     cr = np.linalg.norm(np.cross(p, q), axis=-1)
@@ -125,99 +151,101 @@ def build_mesh(cell_xyz, vertex_xyz, vertices_on_cell, *, on_sphere=True,
 
     cell_xyz (nCells, 3) and vertex_xyz (nVertices, 3) are unit vectors on
     the sphere, or points of the z=0 plane with on_sphere=False (periodic
-    in x and/or y where x_period/y_period > 0); vertices_on_cell is a list
-    of per-cell vertex index rings, oriented counterclockwise here."""
+    in x and/or y where x_period/y_period > 0); vertices_on_cell is
+    (flat, lengths): each cell's ring of vertex indices, the rings
+    concatenated, and their lengths; rings are oriented counterclockwise
+    here."""
     geom = _Geom(on_sphere, x_period, y_period)
     cell_xyz = np.asarray(cell_xyz, dtype=np.float64)
     vertex_xyz = np.asarray(vertex_xyz, dtype=np.float64)
     nCells = cell_xyz.shape[0]
     nVertices = vertex_xyz.shape[0]
+    flat, nEdgesOnCell = (np.asarray(x, dtype=np.int64)
+                          for x in vertices_on_cell)
+    maxEdges = int(nEdgesOnCell.max())
+    maxEdges2 = 2 * maxEdges
+    eoc_valid = np.arange(maxEdges)[None, :] < nEdgesOnCell[:, None]
+    verticesOnCell = padded(flat, nEdgesOnCell)
 
     # --- orient vertex rings counterclockwise -----------------------------
-    voc = [np.asarray(ring, dtype=np.int64) for ring in vertices_on_cell]
-    for c in range(nCells):
-        ring = voc[c]
-        pts = vertex_xyz[ring]
-        area = np.sum(geom.tri_area(cell_xyz[c][None, :], pts,
-                                    np.roll(pts, -1, axis=0)))
-        if area < 0.0:
-            voc[c] = ring[::-1]
-    maxEdges = max(len(r) for r in voc)
-    maxEdges2 = 2 * maxEdges
-    nEdgesOnCell = np.array([len(r) for r in voc], dtype=np.int64)
+    for n, rows in by_length(nEdgesOnCell):
+        pts = vertex_xyz[verticesOnCell[rows, :n]]
+        area = np.sum(geom.tri_area(cell_xyz[rows][:, None], pts,
+                                    np.roll(pts, -1, axis=1)), axis=-1)
+        flip = rows[area < 0.0]
+        verticesOnCell[flip, :n] = verticesOnCell[flip, n - 1::-1]
 
     # --- build edges from consecutive vertex pairs ------------------------
-    # the first cell to create an edge becomes cellsOnEdge[:,0] and fixes
-    # verticesOnEdge in its own ccw order, so t = k x n
-    edge_of_pair = {}
-    cellsOnEdge_l = []
-    verticesOnEdge_l = []
+    # edges are numbered in the order the walk over the rings (cell by
+    # cell, ring position by position) first meets them; the first cell
+    # to meet an edge becomes cellsOnEdge[:,0] and fixes verticesOnEdge
+    # in its own ccw order, so t = k x n; the last other cell to meet it
+    # becomes cellsOnEdge[:,1]
+    c_of, j_of = ragged_index(nEdgesOnCell)
+    va = verticesOnCell[c_of, j_of]
+    vb = verticesOnCell[c_of, (j_of + 1) % nEdgesOnCell[c_of]]
+    pair = np.minimum(va, vb) * nVertices + np.maximum(va, vb)
+    walk = np.argsort(pair, kind="stable")
+    opens = np.r_[True, pair[walk][1:] != pair[walk][:-1]]
+    first = walk[opens]
+    last = walk[np.r_[np.flatnonzero(opens)[1:], walk.size] - 1]
+    by_first = np.argsort(first)
+    first, last = first[by_first], last[by_first]
+    nEdges = first.size
+    edge_of = np.empty(nEdges, dtype=np.int64)
+    edge_of[by_first] = np.arange(nEdges)
+    e_flat = np.empty(walk.size, dtype=np.int64)
+    e_flat[walk] = edge_of[np.cumsum(opens) - 1]
+    cellsOnEdge = np.stack([c_of[first], np.where(last != first, c_of[last],
+                                                  -1)], axis=1)
+    verticesOnEdge = np.stack([va[first], vb[first]], axis=1)
     edgesOnCell = np.full((nCells, maxEdges), PAD, dtype=np.int64)
-    for c in range(nCells):
-        ring = voc[c]
-        n = len(ring)
-        for j in range(n):
-            va, vb = int(ring[j]), int(ring[(j + 1) % n])
-            key = (va, vb) if va < vb else (vb, va)
-            e = edge_of_pair.get(key)
-            if e is None:
-                e = len(cellsOnEdge_l)
-                edge_of_pair[key] = e
-                cellsOnEdge_l.append([c, -1])
-                verticesOnEdge_l.append([va, vb])
-            else:
-                cellsOnEdge_l[e][1] = c
-            edgesOnCell[c, j] = e
-    nEdges = len(cellsOnEdge_l)
-    cellsOnEdge = np.asarray(cellsOnEdge_l, dtype=np.int64)
-    verticesOnEdge = np.asarray(verticesOnEdge_l, dtype=np.int64)
-    del cellsOnEdge_l, verticesOnEdge_l
+    edgesOnCell[eoc_valid] = e_flat
 
     boundaryEdge = (cellsOnEdge[:, 1] < 0).astype(np.float64)
     interior = cellsOnEdge[:, 1] >= 0
 
     cellsOnCell = np.full((nCells, maxEdges), PAD, dtype=np.int64)
-    eoc_valid = np.arange(maxEdges)[None, :] < nEdgesOnCell[:, None]
-    e_of = edgesOnCell[eoc_valid]
-    c_of = np.repeat(np.arange(nCells), nEdgesOnCell)
-    other = np.where(cellsOnEdge[e_of, 0] == c_of,
-                     cellsOnEdge[e_of, 1], cellsOnEdge[e_of, 0])
+    other = np.where(cellsOnEdge[e_flat, 0] == c_of,
+                     cellsOnEdge[e_flat, 1], cellsOnEdge[e_flat, 0])
     cellsOnCell[eoc_valid] = np.where(other < 0, PAD, other)
 
-    verticesOnCell = np.full((nCells, maxEdges), PAD, dtype=np.int64)
-    for c in range(nCells):
-        verticesOnCell[c, :nEdgesOnCell[c]] = voc[c]
-
     # --- vertex-incident connectivity, ordered ccw around the vertex ------
-    vertexDegree = 3
-    cov_lists = [[] for _ in range(nVertices)]
-    for c in range(nCells):
-        for v in voc[c]:
-            cov_lists[int(v)].append(c)
-    vertexDegree = max(vertexDegree, max(len(l) for l in cov_lists))
-
-    eov_lists = [[] for _ in range(nVertices)]
-    for e in range(nEdges):
-        eov_lists[int(verticesOnEdge[e, 0])].append(e)
-        eov_lists[int(verticesOnEdge[e, 1])].append(e)
+    # a vertex's cells in the order of the walk over the rings, its edges
+    # by number, each then sorted by its angle about the vertex
+    cov_count = np.bincount(va, minlength=nVertices)
+    eov_count = np.bincount(verticesOnEdge.ravel(), minlength=nVertices)
+    vertexDegree = max(3, int(cov_count.max()))
+    cov_walk = np.argsort(va, kind="stable")
+    eov_walk = np.argsort(verticesOnEdge.ravel(), kind="stable") // 2
 
     cellsOnVertex = np.full((nVertices, vertexDegree), PAD, dtype=np.int64)
     edgesOnVertex = np.full((nVertices, vertexDegree), PAD, dtype=np.int64)
     cellsOnVertexMask = np.zeros((nVertices, vertexDegree))
+    kite_entry = np.zeros((nVertices, vertexDegree), dtype=np.int64)
     ve_east, ve_north = geom.local_frame(vertex_xyz)
-    for v in range(nVertices):
-        cl = cov_lists[v]
-        ang = geom.tangent_angle(vertex_xyz[v], ve_east[v], ve_north[v],
-                                 cell_xyz[cl])
-        order = np.argsort(ang)
-        cellsOnVertex[v, :len(cl)] = np.asarray(cl)[order]
-        cellsOnVertexMask[v, :len(cl)] = 1.0
-        el = eov_lists[v]
+
+    def about(rows, point):
+        """Angles of (M, D, 3) points about the vertices `rows`."""
+        return geom.tangent_angle(vertex_xyz[rows][:, None],
+                                  ve_east[rows][:, None],
+                                  ve_north[rows][:, None], point)
+
+    cov_start = np.cumsum(cov_count) - cov_count
+    for d, rows in by_length(cov_count):
+        entry = cov_walk[cov_start[rows][:, None] + np.arange(d)]
+        order = np.argsort(about(rows, cell_xyz[c_of[entry]]), axis=-1)
+        entry = np.take_along_axis(entry, order, axis=-1)
+        cellsOnVertex[rows, :d] = c_of[entry]
+        cellsOnVertexMask[rows, :d] = 1.0
+        kite_entry[rows, :d] = entry
+    eov_start = np.cumsum(eov_count) - eov_count
+    for d, rows in by_length(eov_count):
+        el = eov_walk[eov_start[rows][:, None] + np.arange(d)]
         mid = geom.midpoint(vertex_xyz[verticesOnEdge[el, 0]],
                             vertex_xyz[verticesOnEdge[el, 1]])
-        ang = geom.tangent_angle(vertex_xyz[v], ve_east[v], ve_north[v], mid)
-        order = np.argsort(ang)
-        edgesOnVertex[v, :len(el)] = np.asarray(el)[order]
+        order = np.argsort(about(rows, mid), axis=-1)
+        edgesOnVertex[rows, :d] = np.take_along_axis(el, order, axis=-1)
 
     boundaryVertex = np.zeros(nVertices)
     boundaryVertex[verticesOnEdge[boundaryEdge > 0].ravel()] = 1.0
@@ -249,10 +277,9 @@ def build_mesh(cell_xyz, vertex_xyz, vertices_on_cell, *, on_sphere=True,
         areaCell += np.where(valid, tri, 0.0)
 
     # kites: for vertex v = verticesOnCell[c, j] the kite is the quad (cell
-    # centre, edge point j-1, vertex, edge point j)
-    kite_cv = {}  # (v, c) -> kite area
-    rows = np.repeat(np.arange(nCells), nEdgesOnCell)
-    cols = np.concatenate([np.arange(n) for n in nEdgesOnCell])
+    # centre, edge point j-1, vertex, edge point j), one for each entry of
+    # the walk over the rings
+    rows, cols = c_of, j_of
     jprev = (cols - 1) % nEdgesOnCell[rows]
     vv = verticesOnCell[rows, cols]
     e_prev = edgesOnCell[rows, jprev]
@@ -263,14 +290,8 @@ def build_mesh(cell_xyz, vertex_xyz, vertices_on_cell, *, on_sphere=True,
     xe_n = edge_xyz[e_next]
     kite = np.abs(geom.tri_area(xc, xe_p, xv)) \
         + np.abs(geom.tri_area(xc, xv, xe_n))
-    for (v, c, k) in zip(vv, rows, kite):
-        kite_cv[(int(v), int(c))] = float(k)
 
-    kiteAreasOnVertex = np.zeros((nVertices, vertexDegree))
-    for i in range(vertexDegree):
-        for v in range(nVertices):
-            if cellsOnVertexMask[v, i] > 0:
-                kiteAreasOnVertex[v, i] = kite_cv[(v, int(cellsOnVertex[v, i]))]
+    kiteAreasOnVertex = np.where(cellsOnVertexMask > 0, kite[kite_entry], 0.0)
     areaTriangle = np.sum(kiteAreasOnVertex, axis=1)
 
     kiteAreasOnCell = np.zeros((nCells, maxEdges))
@@ -284,9 +305,7 @@ def build_mesh(cell_xyz, vertex_xyz, vertices_on_cell, *, on_sphere=True,
     edgesOnCellMask = eoc_valid.astype(np.float64)
 
     vert_idx = np.arange(nVertices)[:, None]
-    eov_valid = np.zeros((nVertices, vertexDegree), dtype=bool)
-    for v in range(nVertices):
-        eov_valid[v, :len(eov_lists[v])] = True
+    eov_valid = np.arange(vertexDegree)[None, :] < eov_count[:, None]
     edgeSignOnVertex = np.where(
         eov_valid,
         np.where(verticesOnEdge[edgesOnVertex, 1] == vert_idx, 1.0, -1.0), 0.0)

@@ -11,10 +11,14 @@ gives the 40,962-cell (~120 km) mesh. Host numpy + scipy.
 
 from __future__ import annotations
 
-import numpy as np
-from scipy.spatial import SphericalVoronoi, cKDTree
+import itertools
 
-from benchmark.reference.mesh.build import _normalize, _sphere_tri_area, build_mesh
+import numpy as np
+from scipy.spatial import SphericalVoronoi
+
+from benchmark.reference.mesh.build import (_normalize, _sphere_tri_area,
+                                           build_mesh, by_length, padded,
+                                           ragged_index)
 from benchmark.reference.mesh.mesh import Mesh
 
 
@@ -46,30 +50,33 @@ def _icosahedron_faces(verts):
 
 
 def icosphere_points(n: int):
-    """10*n^2 + 2 quasi-uniform points from an n-fold subdivided icosahedron."""
+    """10*n^2 + 2 quasi-uniform points from an n-fold subdivided icosahedron:
+    the points (n-i-j) A + i B + j C of each face (A, B, C) for i = 0..n,
+    j = 0..n-i, normalised; a point that an earlier face or (i, j) already
+    gave (the same to 1e-10) is kept once, in the order first met."""
     verts = icosahedron_vertices()
-    faces = _icosahedron_faces(verts)
-    key_to_id = {}
-    pts = []
-
-    def add(p):
-        key = tuple(np.round(p * 1e10).astype(np.int64))
-        pid = key_to_id.get(key)
-        if pid is None:
-            pid = len(pts)
-            key_to_id[key] = pid
-            pts.append(p)
-        return pid
-
-    for (ia, ib, ic) in faces:
-        A, B, C = verts[ia], verts[ib], verts[ic]
-        for i in range(n + 1):
-            for j in range(n + 1 - i):
-                add(_normalize((n - i - j) * A + i * B + j * C))
-    pts = np.asarray(pts)
+    faces = np.asarray(_icosahedron_faces(verts))
+    i, j = ragged_index(np.arange(n + 1, 0, -1))
+    w = np.stack([n - i - j, i, j], axis=-1).astype(np.float64)[None, :, :,
+                                                               None]
+    A, B, C = (verts[faces[:, k]][:, None] for k in range(3))
+    pts = _normalize((w[:, :, 0] * A + w[:, :, 1] * B + w[:, :, 2] * C)
+                     .reshape(-1, 3))
+    key = np.round(pts * 1e10).astype(np.int64)
+    _, first = np.unique(key, axis=0, return_index=True)
+    pts = pts[np.sort(first)]
     if pts.shape[0] != 10 * n * n + 2:
         raise RuntimeError(f"icosphere({n}) produced {pts.shape[0]} points")
     return pts
+
+
+def _ragged(regions):
+    """(flat int64, lengths) of a list of index lists."""
+    lengths = np.fromiter(map(len, regions), dtype=np.int64,
+                          count=len(regions))
+    flat = np.fromiter(itertools.chain.from_iterable(regions),
+                       dtype=np.int64, count=int(lengths.sum()))
+    return flat, lengths
 
 
 def lloyd_relax(points, iterations: int = 0):
@@ -78,69 +85,47 @@ def lloyd_relax(points, iterations: int = 0):
     for _ in range(iterations):
         sv = SphericalVoronoi(pts, radius=1.0, threshold=1e-10)
         sv.sort_vertices_of_regions()
+        flat, lengths = _ragged(sv.regions)
+        regions = padded(flat, lengths)
         new = np.empty_like(pts)
-        for c, region in enumerate(sv.regions):
-            ring = sv.vertices[region]
-            # area-weighted centroid from the triangle fan about the generator
-            a = _sphere_tri_area(pts[c][None], ring, np.roll(ring, -1, axis=0))
-            tri_cent = pts[c][None] + ring + np.roll(ring, -1, axis=0)
-            w = np.abs(a)[:, None]
-            new[c] = np.sum(w * tri_cent, axis=0)
+        for n, rows in by_length(lengths):
+            ring = sv.vertices[regions[rows, :n]]
+            nxt = np.roll(ring, -1, axis=1)
+            # area-weighted centroid from the triangle fan about the
+            # generator, the triangles summed one after another
+            a = _sphere_tri_area(pts[rows][:, None], ring, nxt)
+            tri_cent = pts[rows][:, None] + ring + nxt
+            new[rows] = np.sum(np.abs(a)[..., None] * tri_cent, axis=1)
         pts = _normalize(new)
     return pts
 
 
-def sphere_voronoi_mesh(points, merge_tol: float = 0.0) -> Mesh:
+def sphere_voronoi_mesh(points) -> Mesh:
     """Unit-sphere Voronoi Mesh from generator points. Voronoi vertices that
-    coincide (symmetric configurations) are merged into one.
-
-    merge_tol > 0 also merges Voronoi vertices closer than merge_tol x the
-    local circumradius (distance to the nearest generator): near-cocircular
-    generator quadruples, common on variable-resolution SCVTs, otherwise
-    leave edges of near-zero dvEdge, whose 1/dvEdge rides the pv and
-    circulation stencils. A merged vertex sits at its cluster's centroid."""
+    coincide (symmetric configurations: the same to 1e-9) are merged into
+    one, at their normalised sum, and a ring keeps a merged vertex once."""
     pts = _normalize(np.asarray(points, dtype=np.float64))
     sv = SphericalVoronoi(pts, radius=1.0, threshold=1e-10)
     sv.sort_vertices_of_regions()
 
-    nv = len(sv.vertices)
-    parent = np.arange(nv, dtype=np.int64)
-
-    def find(i):
-        while parent[i] != i:
-            parent[i] = parent[parent[i]]
-            i = parent[i]
-        return i
-
-    key_to_id = {}
-    for i, p in enumerate(sv.vertices):
-        key = tuple(np.round(p * 1e9).astype(np.int64))
-        j = key_to_id.setdefault(key, i)
-        if j != i:
-            parent[find(i)] = find(j)
-
-    if merge_tol > 0.0:
-        circum, _ = cKDTree(pts).query(sv.vertices, k=1)
-        vtree = cKDTree(sv.vertices)
-        for i, j in vtree.query_pairs(merge_tol * float(np.max(circum))):
-            d = np.linalg.norm(sv.vertices[i] - sv.vertices[j])
-            if d <= merge_tol * min(circum[i], circum[j]):
-                parent[find(i)] = find(j)
-
-    roots = np.array([find(i) for i in range(nv)], dtype=np.int64)
-    uniq, remap = np.unique(roots, return_inverse=True)
+    # each vertex stands for the first with its rounded position
+    key = np.round(sv.vertices * 1e9).astype(np.int64)
+    _, first, inv = np.unique(key, axis=0, return_index=True,
+                              return_inverse=True)
+    uniq, remap = np.unique(first[inv.reshape(-1)], return_inverse=True)
     vxyz = np.zeros((uniq.size, 3))
     np.add.at(vxyz, remap, sv.vertices)
     vxyz = _normalize(vxyz)
 
-    vertices_on_cell = []
-    for region in sv.regions:
-        ring = [int(remap[v]) for v in region]
-        # collapse merge-repeated neighbours (incl. wraparound)
-        ring = [v for k, v in enumerate(ring) if v != ring[k - 1]]
-        vertices_on_cell.append(ring)
-
-    return build_mesh(pts, vxyz, vertices_on_cell, sphere_radius=1.0)
+    flat, lengths = _ragged(sv.regions)
+    ring = remap[flat]
+    # collapse merge-repeated neighbours (incl. wraparound)
+    cell, k = ragged_index(lengths)
+    at = np.arange(ring.size)
+    prev = np.where(k == 0, at + lengths[cell] - 1, at - 1)
+    keep = ring != ring[prev]
+    kept = np.bincount(cell[keep], minlength=lengths.size)
+    return build_mesh(pts, vxyz, (ring[keep], kept), sphere_radius=1.0)
 
 
 def icosahedral_mesh(n: int, lloyd_iters: int = 4) -> Mesh:

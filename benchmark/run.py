@@ -14,10 +14,15 @@ the per-layer metrics (benchmark/metrics/<name>.py). Either way the
 program's state is then freed and its outputs are held to the plain
 reference (benchmark/reference), each compared number beside its limit.
 
+A cell on P > 1 cards runs as P processes, one a card, in lockstep
+(benchmark/harness/ranks.py); device then also gives each card's peak
+memory, and with --trace 1 the rank whose trace the metrics read.
+
 The last line of standard output is one JSON object: correct,
 attempted, failed, metrics, device, with --trace 1 breakdown, and last
 checks. It exits nonzero with no result without CUDA, with fewer cards
-than the cell asks for, or where the process holds the JAX package.
+than the cell asks for, where a rank fails, or where a process holds the
+JAX package.
 """
 
 import time
@@ -163,6 +168,9 @@ def main(argv=None):
     if torch.cuda.device_count() < cell["chips"]:
         return fail(f"{args.workload} needs {cell['chips']} card(s); "
                     f"{torch.cuda.device_count()} present")
+    if cell["chips"] > 1:
+        from benchmark.harness import ranks
+        return ranks.main(spec, args, T_START)
     try:
         result = run_cell(spec, args.workload, args.seed, args.seconds,
                           args.trace, torch.device("cuda:0"))
