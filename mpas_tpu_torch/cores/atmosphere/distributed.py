@@ -12,6 +12,9 @@ every exchange moves whole columns, the decomposition the reference uses.
 The sharded grid, state and carry are host-stacked (P, ...) CPU tensors;
 `ShardedAtm.local` and runner.place turn them into what a ShardGroup
 holds: all shards as one flat layout (loopback) or one rank's shard.
+Where the globe's fields do not fit a host, shard_atm_setup gives a rank
+its own shard's grid and carry from the mesh and the partition alone,
+equal on every row to the cut of the global ones.
 """
 
 from __future__ import annotations
@@ -25,8 +28,13 @@ from mpas_tpu_torch.cores.atmosphere.config import AtmConfig
 from mpas_tpu_torch.cores.atmosphere.setup import AtmGrid
 from mpas_tpu_torch.cores.atmosphere.state import AtmDiag, AtmState
 from mpas_tpu_torch.cores.atmosphere.time_integration import (AtmCarry,
+                                                              init_carry,
                                                               run_steps_xch)
-from mpas_tpu_torch.parallel.layout import ShardedMesh, build_sharded_mesh
+from mpas_tpu_torch.mesh.mesh import Mesh
+from mpas_tpu_torch.parallel.layout import (ZEROED_FIELDS, ShardedMesh,
+                                            ShardLayout, build_sharded_mesh,
+                                            halo_mesh, shard_layout,
+                                            sharded_mesh)
 from mpas_tpu_torch.parallel.partition import _np
 from mpas_tpu_torch.parallel.runner import (ShardExchange, ShardGroup,
                                             place, pmax_owned, psum_owned,
@@ -66,69 +74,91 @@ def _missing(slots, conn, g2l):
     return (slots < 0)[:, None] | (local < 0)
 
 
-def shard_atm_grid(grid: AtmGrid, part, halo_depth: int = ATM_HALO_DEPTH
-                   ) -> ShardedAtm:
-    """Per-shard local AtmGrids from a global one (host, once)."""
-    smesh = build_sharded_mesh(grid.mesh, part, halo_depth=halo_depth)
-    P = smesh.n_parts
-    cell_slots = np.asarray(smesh.cell_global)
-    edge_slots = np.asarray(smesh.edge_global)
+def _d2_masks(mesh, cell_slots, edge_slots):
+    """One shard's d2 masks: (cells, maxEdges+1) for the cell stencil
+    columns (the cell itself, then cellsOnCell) and (edges, 2) for the
+    per-side edge weights, True where the cell is not shard-local."""
+    g2l = np.full(mesh.nCells, -1, dtype=np.int64)
+    live = np.nonzero(cell_slots >= 0)[0]
+    g2l[cell_slots[live]] = live
+    cell = np.concatenate([(cell_slots < 0)[:, None],
+                           _missing(cell_slots, _np(mesh.cellsOnCell), g2l)],
+                          axis=1)
+    return cell, _missing(edge_slots, _np(mesh.cellsOnEdge), g2l)
 
-    def sc(x, kind):
-        return scatter_field(smesh, _np(x), kind)
 
+def _cut_grid(grid: AtmGrid, take, d2_masks) -> dict:
+    """{field: local array} of grid's fields but mesh and vert: take(x,
+    kind) gives a field's local rows (dead slots 0); d2_masks () -> the
+    (cell, edge) masks of _d2_masks, stacked or not as take's rows."""
     # the factored advection's second-derivative fits: zero the cell
     # stencil columns and the per-side edge weights whose cell is not
     # shard-local (the deep-halo rows would read a wrong neighbour)
     d2_bmat_l = d2w_l = None
     if grid.d2_bmat is not None:
-        coc = _np(grid.mesh.cellsOnCell)
-        coe = _np(grid.mesh.cellsOnEdge)
-        d2_cell_mask = np.zeros((P, cell_slots.shape[1], coc.shape[1] + 1),
-                                dtype=bool)
-        d2w_mask = np.zeros((P, edge_slots.shape[1], 2), dtype=bool)
-        for p in range(P):
-            g2l = np.full(grid.mesh.nCells, -1, dtype=np.int64)
-            live = np.nonzero(cell_slots[p] >= 0)[0]
-            g2l[cell_slots[p, live]] = live
-            crows = cell_slots[p]
-            d2_cell_mask[p] = np.concatenate(
-                [(crows < 0)[:, None], _missing(crows, coc, g2l)], axis=1)
-            d2w_mask[p] = _missing(edge_slots[p], coe, g2l)
-        d2_bmat_l = np.where(d2_cell_mask[:, :, None, :], 0.0,
-                             sc(grid.d2_bmat, "cell"))
-        d2w_l = np.where(d2w_mask[..., None], 0.0, sc(grid.d2w, "edge"))
+        d2_cell_mask, d2w_mask = d2_masks()
+        d2_bmat_l = np.where(d2_cell_mask[..., None, :], 0.0,
+                             take(grid.d2_bmat, "cell"))
+        d2w_l = np.where(d2w_mask[..., None], 0.0, take(grid.d2w, "edge"))
+
+    n_eoc = take(grid.mesh.nEdgesOnCell, "cell")
+    padded = np.arange(grid.mesh.maxEdges) >= n_eoc[..., None]
 
     def opt_cell(x):
-        return None if x is None else sc(x, "cell")
+        """zero in the padded slots, which hold edge 0's values"""
+        if x is None:
+            return None
+        x = take(x, "cell")
+        return np.where(padded.reshape(padded.shape + (1,) * (
+            x.ndim - padded.ndim)), 0.0, x)
 
     def one(x):
         """dead slots: 1.0, so that the divisions by it stay finite"""
-        x = sc(x, "cell")
+        x = take(x, "cell")
         return np.where(x == 0.0, 1.0, x)
 
     def slot_major(x):
-        return sc(_np(x).transpose(1, 0, 2), "cell").transpose(0, 2, 1, 3)
+        x = take(np.moveaxis(_np(x), 0, 1), "cell")
+        return np.moveaxis(x, -3, -2)
 
     fields = dict(
-        zgrid=sc(grid.zgrid, "cell"), zz=one(grid.zz),
-        zxu=sc(grid.zxu, "edge"), dss=sc(grid.dss, "cell"),
+        zgrid=take(grid.zgrid, "cell"), zz=one(grid.zz),
+        zxu=take(grid.zxu, "edge"), dss=take(grid.dss, "cell"),
         zb_cell=slot_major(grid.zb_cell), zb3_cell=slot_major(grid.zb3_cell),
-        defc_a=sc(grid.defc_a, "cell"), defc_b=sc(grid.defc_b, "cell"),
-        recon_zonal=sc(grid.recon_zonal, "cell"),
-        recon_merid=sc(grid.recon_merid, "cell"),
+        defc_a=take(grid.defc_a, "cell"), defc_b=take(grid.defc_b, "cell"),
+        recon_zonal=take(grid.recon_zonal, "cell"),
+        recon_merid=take(grid.recon_merid, "cell"),
         rho_base=one(grid.rho_base), rtheta_base=one(grid.rtheta_base),
         exner_base=one(grid.exner_base),
-        pressure_base=sc(grid.pressure_base, "cell"),
+        pressure_base=take(grid.pressure_base, "cell"),
         d2_bmat=d2_bmat_l, d2w=d2w_l,
-        # edge-valued content on cell rows: row reorder only; dead slots
-        # are killed by the masked edgeSignOnCell of the sharded mesh
+        # edge-valued content on cell rows: row reorder only; dead and
+        # missing slots are killed by the masked edgeSignOnCell of the
+        # sharded mesh
         d2w_own=opt_cell(grid.d2w_own), d2w_opp=opt_cell(grid.d2w_opp),
         adv_sside=opt_cell(grid.adv_sside), dv_cell=opt_cell(grid.dv_cell))
-    fields = {k: None if v is None
-              else torch.from_numpy(np.ascontiguousarray(v))
-              for k, v in fields.items()}
-    local = dataclasses.replace(grid, mesh=smesh.mesh, **fields)
+    return {k: None if v is None
+            else torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in fields.items()}
+
+
+def shard_atm_grid(grid: AtmGrid, part, halo_depth: int = ATM_HALO_DEPTH
+                   ) -> ShardedAtm:
+    """Per-shard local AtmGrids from a global one (host, once)."""
+    smesh = build_sharded_mesh(grid.mesh, part, halo_depth=halo_depth)
+    cell_slots = np.asarray(smesh.cell_global)
+    edge_slots = np.asarray(smesh.edge_global)
+
+    def take(x, kind):
+        return scatter_field(smesh, _np(x), kind)
+
+    def d2_masks():
+        masks = [_d2_masks(grid.mesh, c, e)
+                 for c, e in zip(cell_slots, edge_slots)]
+        return tuple(np.stack(m) for m in zip(*masks))
+
+    local = dataclasses.replace(grid, mesh=smesh.mesh,
+                                **_cut_grid(grid, take, d2_masks))
     return ShardedAtm(grid=local, smesh=smesh)
 
 
@@ -154,13 +184,16 @@ _FIELDS = {
 }
 
 
+def _fill_dead(name, x):
+    """x with its zeros (its dead slots) at the value _FIELDS gives."""
+    dead = _FIELDS[name][1]
+    return x if dead is None else np.where(x == 0.0, dead, x)
+
+
 def _scatter(sm, name, x):
     """The stacked (P, ...) CPU tensor of one global field, by _FIELDS."""
-    kind, dead = _FIELDS[name]
-    x = scatter_field(sm, x, kind)
-    if dead is not None:
-        x = np.where(x == 0.0, dead, x)
-    return torch.from_numpy(x)
+    return torch.from_numpy(_fill_dead(name, scatter_field(
+        sm, x, _FIELDS[name][0])))
 
 
 def _scatter_all(sm, obj, skip=()):
@@ -214,6 +247,146 @@ def carry_from_restart_fields(fields) -> AtmCarry:
     return AtmCarry(state=sub(AtmState, "state"), diag=sub(AtmDiag, "diag"),
                     **{f.name: t[f.name] for f in dataclasses.fields(AtmCarry)
                        if f.name not in ("state", "diag")})
+
+
+# cell layers that init_jw's stencils reach beyond a cell: the omega
+# metric of a cell reads the fits and heights of its edges' far cells'
+# neighbours (setup.build_zb)
+INIT_REACH = 2
+_KINDS = ("cell", "edge", "vertex")
+
+
+def shard_atm_init(mesh: Mesh, part, layout: ShardLayout, p: int, init,
+                   init_reach: int = INIT_REACH):
+    """Shard p's (AtmGrid, AtmState, AtmDiag), float64 CPU tensors, equal
+    to shard p of shard_atm_grid(grid, part) and of shard_atm_state(...,
+    state, diag) for (grid, state, diag) = init(mesh), without a global
+    field: init (a mesh -> (grid, state, diag) map such as init_jw, its
+    stencils init_reach cell layers deep) runs on halo_mesh's entities of
+    shard p within layout.halo_depth + init_reach layers, exact on those
+    of the layout's halo_depth, whose rows are then cut from it. The
+    mesh's fields that init rescales or sets (radius, Coriolis) are its
+    rows too, zeroed where layout.shard_mesh zeroes a weight."""
+    big, ids = halo_mesh(mesh, part, p, layout.halo_depth + init_reach)
+    grid, state, diag = init(big)
+    n_global = {"cell": mesh.nCells, "edge": mesh.nEdges,
+                "vertex": mesh.nVertices}
+    rows = {}
+    for kind in _KINDS:
+        slots = layout.slots(kind, p)
+        at = np.full(n_global[kind], -1, dtype=np.int64)
+        at[ids[kind]] = np.arange(len(ids[kind]))
+        rows[kind] = np.where(slots >= 0, at[np.maximum(slots, 0)], -1)
+        if (rows[kind][slots >= 0] < 0).any():
+            raise ValueError(f"shard {p}: a {kind} of the layout lies "
+                             "outside its halo mesh")
+
+    def take(x, kind):
+        x, r = _np(x), rows[kind]
+        dead = (r < 0).reshape(r.shape + (1,) * (x.ndim - 1))
+        return np.where(dead, 0, x[np.maximum(r, 0)])
+
+    by_rows = {big.nCells: "cell", big.nEdges: "edge",
+               big.nVertices: "vertex"}
+    mesh_l = layout.shard_mesh(mesh, p)
+    changes = {}
+    for f in dataclasses.fields(big):
+        v = getattr(grid.mesh, f.name)
+        if isinstance(v, torch.Tensor) and v is not getattr(big, f.name):
+            x = take(v, by_rows[v.shape[0]])
+            if f.name in ZEROED_FIELDS:
+                x = np.where(_np(getattr(mesh_l, f.name)) == 0.0, 0.0, x)
+            changes[f.name] = torch.from_numpy(x)
+    counts = ("nCells", "nEdges", "nVertices")
+    mesh_l = dataclasses.replace(grid.mesh, **{
+        f.name: changes.get(f.name, getattr(mesh_l, f.name))
+        for f in dataclasses.fields(mesh_l)
+        if f.name in counts or isinstance(getattr(mesh_l, f.name),
+                                          torch.Tensor)})
+    grid_l = dataclasses.replace(grid, mesh=mesh_l, **_cut_grid(
+        grid, take, lambda: _d2_masks(mesh, layout.slots("cell", p),
+                                      layout.slots("edge", p))))
+
+    def cut(obj):
+        return type(obj)(**{f.name: torch.from_numpy(_fill_dead(
+            f.name, take(getattr(obj, f.name), _FIELDS[f.name][0])))
+            for f in dataclasses.fields(obj)})
+    return grid_l, cut(state), cut(diag)
+
+
+def _stack(objs):
+    """One dataclass of the tensors of `objs` stacked on a new axis 0."""
+    first = objs[0]
+    return dataclasses.replace(first, **{
+        f.name: torch.stack([getattr(o, f.name) for o in objs])
+        for f in dataclasses.fields(first)
+        if isinstance(getattr(first, f.name), torch.Tensor)})
+
+
+def refresh_carry(carry_l: AtmCarry, xch: ShardExchange, layout,
+                  group: ShardGroup) -> AtmCarry:
+    """Every field of a placed carry with its halo refreshed from its
+    owners (full depth) and its dead slots at _FIELDS' values: a carry
+    computed on the shards alone made equal, on every row, to the cut of
+    the global carry."""
+    dead = {}
+    for kind in _KINDS:
+        d = np.asarray(getattr(layout, f"{kind}_global")) < 0
+        dead[kind] = torch.from_numpy(
+            d.reshape(-1) if group.loopback else d[group.rank]).to(
+                group.device)
+
+    def fix(name, x):
+        kind, fill = _FIELDS[name]
+        x = getattr(xch, kind)(x)
+        m = dead[kind].reshape((-1,) + (1,) * (x.dim() - 1))
+        return torch.where(m, torch.full_like(x, fill or 0.0), x)
+
+    def each(obj):
+        return dataclasses.replace(obj, **{
+            f.name: each(v) if dataclasses.is_dataclass(v) else fix(f.name, v)
+            for f in dataclasses.fields(obj)
+            for v in (getattr(obj, f.name),)})
+    return each(carry_l)
+
+
+def shard_atm_local(mesh: Mesh, part, layout: ShardLayout,
+                    group: ShardGroup, dtype, init):
+    """(grid_l, state_l, diag_l): `group`'s shards' grid, state and
+    diagnostics by shard_atm_init (init: mesh -> (grid, state, diag)), on
+    the group's device in `dtype`. A rank (group.rank r) builds shard r
+    alone, loopback every shard."""
+    shards = range(layout.n_parts) if group.loopback else (group.rank,)
+    made = [shard_atm_init(mesh, part, layout, p, init) for p in shards]
+    if not group.loopback:
+        return tuple(x.to(group.device, dtype) for x in made[0])
+    grids, states, diags = zip(*made)
+    satm = ShardedAtm(grid=_stack(grids), smesh=sharded_mesh(
+        layout, [g.mesh for g in grids]))
+    return (satm.local(group, dtype), place(_stack(states), group, dtype),
+            place(_stack(diags), group, dtype))
+
+
+def shard_atm_setup(mesh: Mesh, part, cfg: AtmConfig, group: ShardGroup,
+                    dtype, init, dt, perturb=None, layout=None,
+                    halo_depth: int = ATM_HALO_DEPTH):
+    """(grid_l, carry_l, xch) of `group`'s shards set up from the global
+    mesh and partition alone: shard_atm_local's grid, state and
+    diagnostics; perturb(grid_l, state_l, diag_l) -> (state_l, diag_l),
+    where given, changes the initial state; then init_carry on the shards
+    and one refresh_carry through xch, the group's ShardExchange. Equal
+    to satm.local(group, dtype) and place(shard_atm_carry(satm, carry))
+    of the global grid and carry made the same way, satm =
+    shard_atm_grid(grid, part). layout: the partition's shard_layout
+    where the caller has it."""
+    layout = layout or shard_layout(mesh, part, halo_depth)
+    grid_l, state_l, diag_l = shard_atm_local(mesh, part, layout, group,
+                                              dtype, init)
+    if perturb is not None:
+        state_l, diag_l = perturb(grid_l, state_l, diag_l)
+    xch = ShardExchange(layout, group)
+    carry_l = init_carry(grid_l, cfg, state_l, diag_l, dt)
+    return grid_l, refresh_carry(carry_l, xch, layout, group), xch
 
 
 def make_run_steps_atm(satm: ShardedAtm, cfg: AtmConfig, group: ShardGroup):

@@ -4,7 +4,8 @@
 ref: init_atm_case_jw, src/core_init_atmosphere/mpas_init_atm_cases.F:367-1160
 (cases 1-3: unperturbed / Gaussian perturbation / normal-mode perturbation).
 Vectorized over columns; the per-column double-iteration hydrostatic
-balance (10 outer x 25 inner) is reproduced exactly. Winds use the
+balance (10 outer x 25 inner) is reproduced exactly, in blocks of columns
+on the host's cores. Winds use the
 original JW analytic profile (ref :951-966, rebalance=False branch).
 
 Also builds the AtmGrid and the coupled diagnostics, so one call yields a
@@ -29,7 +30,7 @@ from mpas_tpu_torch.cores.atmosphere.setup import (AtmGrid,
                                                    build_deriv_two, build_dss,
                                                    build_reconstruct_weights,
                                                    build_vertical_grid,
-                                                   build_zb)
+                                                   build_zb, by_blocks)
 from mpas_tpu_torch.cores.atmosphere.state import AtmDiag, AtmState
 from mpas_tpu_torch.mesh.build import compute_mesh_scaling
 from mpas_tpu_torch.mesh.mesh import Mesh
@@ -64,6 +65,57 @@ def _sphere_distance(lat1, lon1, lat2, lon2, radius):
                   + np.cos(lat1) * np.cos(lat2)
                   * np.sin(0.5 * (lon2 - lon1)) ** 2)
     return 2.0 * radius * np.arcsin(np.clip(arg, -1.0, 1.0))
+
+
+def _hydrostatic(ppb, rb, zz, latC, *, dzw, dzu, fzm, fzp, u0, r_earth):
+    """(pp, rr, tt) of the dry hydrostatic iteration (ref :860-930) for
+    the columns given, each column on its own."""
+    nz = zz.shape[1]
+    pp = np.zeros(zz.shape)
+    rr = np.zeros(zz.shape)
+    phi = latC[:, None]
+    for _ in range(10):
+        eta = (ppb + pp) / p0
+        etav = (eta - 0.252) * pii / 2.0
+        teta = np.where(eta >= ETA_T,
+                        T0 * eta ** (rgas * DTDZ / gravity),
+                        T0 * eta ** (rgas * DTDZ / gravity)
+                        + DELTA_T * np.maximum(ETA_T - eta, 0.0) ** 5)
+        tt = teta + 0.75 * eta * pii * u0 / rgas * np.sin(etav) \
+            * np.sqrt(np.cos(etav)) * (
+                (-2.0 * np.sin(phi) ** 6 * (np.cos(phi) ** 2 + 1.0 / 3.0)
+                 + 10.0 / 63.0) * 2.0 * u0 * np.cos(etav) ** 1.5
+                + (1.6 * np.cos(phi) ** 3 * (np.sin(phi) ** 2 + 2.0 / 3.0)
+                   - pii / 4.0) * r_earth * omega)
+        # inner-loop invariants (tt is fixed within the 25 relaxations)
+        inv_tt = 1.0 / tt
+        p_fac = inv_tt / (rgas * zz)
+        r_off = rb * (tt - T0B) * inv_tt
+        cm = -dzu[1:nz] * gravity * fzp[1:nz]
+        cp_ = -dzu[1:nz] * gravity * fzm[1:nz]
+        base0 = p0 - ppb[:, 0]
+        rr_b = np.empty_like(pp)
+        incr_b = np.empty((len(pp), nz - 1))
+        ppi_b = np.empty(pp.shape)
+        scr = np.empty((len(pp), nz - 1))
+        for _ in range(25):
+            np.multiply(pp, p_fac, out=rr_b)
+            rr_b -= r_off
+            rr = rr_b
+            ppi0 = base0 - 0.5 * dzw[0] * gravity \
+                * (1.25 * (rr[:, 0] + rb[:, 0])
+                   - 0.25 * (rr[:, 1] + rb[:, 1]))
+            # hydrostatic downward integration as a cumulative sum
+            np.multiply(rr[:, :-1], cm, out=incr_b)
+            np.multiply(rr[:, 1:], cp_, out=scr)
+            incr_b += scr
+            ppi_b[:, 0] = 0.0
+            np.cumsum(incr_b, axis=1, out=ppi_b[:, 1:])
+            ppi_b += ppi0[:, None]
+            pp *= 0.8
+            ppi_b *= 0.2
+            pp += ppi_b
+    return pp, rr, tt
 
 
 def init_jw(mesh: Mesh, cfg: AtmConfig, case: int = 2,
@@ -112,50 +164,9 @@ def init_jw(mesh: Mesh, cfg: AtmConfig, case: int = 2,
     # --- hydrostatic iteration (ref :860-930, dry) -------------------------
     dzu = np.zeros(nz + 1)
     dzu[1:nz] = 0.5 * (dzw[1:] + dzw[:-1])
-    pp = np.zeros((nC, nz))
-    rr = np.zeros((nC, nz))
-    phi = latC[:, None]
-    for _ in range(10):
-        eta = (ppb + pp) / p0
-        etav = (eta - 0.252) * pii / 2.0
-        teta = np.where(eta >= ETA_T,
-                        T0 * eta ** (rgas * DTDZ / gravity),
-                        T0 * eta ** (rgas * DTDZ / gravity)
-                        + DELTA_T * np.maximum(ETA_T - eta, 0.0) ** 5)
-        tt = teta + 0.75 * eta * pii * u0 / rgas * np.sin(etav) \
-            * np.sqrt(np.cos(etav)) * (
-                (-2.0 * np.sin(phi) ** 6 * (np.cos(phi) ** 2 + 1.0 / 3.0)
-                 + 10.0 / 63.0) * 2.0 * u0 * np.cos(etav) ** 1.5
-                + (1.6 * np.cos(phi) ** 3 * (np.sin(phi) ** 2 + 2.0 / 3.0)
-                   - pii / 4.0) * r_earth * omega)
-        # inner-loop invariants (tt is fixed within the 25 relaxations)
-        inv_tt = 1.0 / tt
-        p_fac = inv_tt / (rgas * zz)
-        r_off = rb * (tt - T0B) * inv_tt
-        cm = -dzu[1:nz] * gravity * fzp[1:nz]
-        cp_ = -dzu[1:nz] * gravity * fzm[1:nz]
-        base0 = p0 - ppb[:, 0]
-        rr_b = np.empty_like(pp)
-        incr_b = np.empty((nC, nz - 1))
-        ppi_b = np.empty((nC, nz))
-        scr = np.empty((nC, nz - 1))
-        for _ in range(25):
-            np.multiply(pp, p_fac, out=rr_b)
-            rr_b -= r_off
-            rr = rr_b
-            ppi0 = base0 - 0.5 * dzw[0] * gravity \
-                * (1.25 * (rr[:, 0] + rb[:, 0])
-                   - 0.25 * (rr[:, 1] + rb[:, 1]))
-            # hydrostatic downward integration as a cumulative sum
-            np.multiply(rr[:, :-1], cm, out=incr_b)
-            np.multiply(rr[:, 1:], cp_, out=scr)
-            incr_b += scr
-            ppi_b[:, 0] = 0.0
-            np.cumsum(incr_b, axis=1, out=ppi_b[:, 1:])
-            ppi_b += ppi0[:, None]
-            pp *= 0.8
-            ppi_b *= 0.2
-            pp += ppi_b
+    pp, rr, tt = by_blocks(lambda lo, hi: _hydrostatic(
+        ppb[lo:hi], rb[lo:hi], zz[lo:hi], latC[lo:hi], dzw=dzw, dzu=dzu,
+        fzm=fzm, fzp=fzp, u0=u0, r_earth=r_earth), nC)
     exner = ((ppb + pp) / p0) ** (rgas / cp)
     theta = tt / exner
     rho_zz = rb + rr

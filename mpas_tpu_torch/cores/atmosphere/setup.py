@@ -1,7 +1,9 @@
 """Host-side atmosphere grid setup (port of
 mpas_tpu/cores/atmosphere/setup.py): vertical coordinate, the factored
 advection tensors, deformation and wind-reconstruction weights, omega
-metric terms and the w-damping profile.
+metric terms and the w-damping profile. The omega metric terms, the
+costliest, run on blocks of edges and cells on the host's cores
+(by_blocks).
 
 Only the grid fields the factored advection path reads are carried; the
 reference's indexed `advCellsForEdge`/`adv_coefs` stencil is its
@@ -14,6 +16,8 @@ the containers hold torch tensors.
 from __future__ import annotations
 
 import dataclasses
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any
 
 import numpy as np
@@ -388,6 +392,23 @@ def build_reconstruct_weights(mesh: Mesh):
     return w_zonal, w_merid
 
 
+BLOCK = 16384
+
+
+def by_blocks(fn, n: int, axis: int = 0):
+    """fn(lo, hi)'s arrays over the rows 0..n, fn run on blocks of BLOCK
+    rows on up to os.cpu_count() threads (numpy leaves the GIL in its
+    loops, and a block's arrays stay in the cores' caches), each output
+    joined along `axis`. For a fn that computes each row alone, the
+    blocks change no bit."""
+    starts = range(0, n, BLOCK)
+    with ThreadPoolExecutor(max_workers=max(1, min(os.cpu_count() or 1,
+                                                   len(starts)))) as pool:
+        parts = list(pool.map(lambda lo: fn(lo, min(lo + BLOCK, n)),
+                              starts))
+    return tuple(np.concatenate(x, axis=axis) for x in zip(*parts))
+
+
 def build_zb(mesh: Mesh, vg: VerticalGrid, zgrid, deriv_two,
              theta_adv_order: int, coef_3rd_order: float):
     """Omega metric terms zb/zb3, stored per cell and slot-major
@@ -402,46 +423,58 @@ def build_zb(mesh: Mesh, vg: VerticalGrid, zgrid, deriv_two,
     dv = np.asarray(mesh.dvEdge)
     dc = np.asarray(mesh.dcEdge)
     areaC = np.asarray(mesh.areaCell)
-    c1, c2 = coe[:, 0], coe[:, 1]
 
-    if theta_adv_order == 2:
-        z_edge = 0.5 * (zgrid[c1] + zgrid[c2])
-        z_edge3 = np.zeros((nE, nzp))
-    else:
-        d2 = np.zeros((2, nE, nzp))
-        for side in range(2):
-            cells = coe[:, side]
-            acc = deriv_two[:, side, 0][:, None] * zgrid[cells]
-            for i in range(mE):
-                valid = i < nEoC[cells]
-                nb = coc[cells, i]
-                acc = acc + np.where(valid[:, None],
-                                     deriv_two[:, side, i + 1][:, None]
-                                     * zgrid[nb], 0.0)
-            d2[side] = acc
-        z_edge = 0.5 * (zgrid[c1] + zgrid[c2]) \
-            - (dc ** 2)[:, None] * (d2[0] + d2[1]) / 12.0
-        if theta_adv_order == 3:
-            z_edge3 = -(dc ** 2)[:, None] * (d2[0] - d2[1]) / 12.0
+    def edges(lo, hi):
+        """(zb, zb3) of edges lo..hi: (n, 2, nz+1) each."""
+        ce = coe[lo:hi]
+        c1, c2 = ce[:, 0], ce[:, 1]
+        dce, dve = dc[lo:hi], dv[lo:hi]
+        if theta_adv_order == 2:
+            z_edge = 0.5 * (zgrid[c1] + zgrid[c2])
+            z_edge3 = np.zeros((hi - lo, nzp))
         else:
-            z_edge3 = np.zeros((nE, nzp))
+            d2 = np.zeros((2, hi - lo, nzp))
+            for side in range(2):
+                cells = ce[:, side]
+                dt2 = deriv_two[lo:hi, side]
+                acc = dt2[:, 0][:, None] * zgrid[cells]
+                for i in range(mE):
+                    valid = i < nEoC[cells]
+                    nb = coc[cells, i]
+                    acc = acc + np.where(valid[:, None],
+                                         dt2[:, i + 1][:, None]
+                                         * zgrid[nb], 0.0)
+                d2[side] = acc
+            z_edge = 0.5 * (zgrid[c1] + zgrid[c2]) \
+                - (dce ** 2)[:, None] * (d2[0] + d2[1]) / 12.0
+            if theta_adv_order == 3:
+                z_edge3 = -(dce ** 2)[:, None] * (d2[0] - d2[1]) / 12.0
+            else:
+                z_edge3 = np.zeros((hi - lo, nzp))
+        zb = np.zeros((hi - lo, 2, nzp))
+        zb3 = np.zeros((hi - lo, 2, nzp))
+        zb[:, 0, :] = (z_edge - zgrid[c1]) * (dve / areaC[c1])[:, None]
+        zb[:, 1, :] = (z_edge - zgrid[c2]) * (dve / areaC[c2])[:, None]
+        zb3[:, 0, :] = z_edge3 * (dve / areaC[c1])[:, None]
+        zb3[:, 1, :] = z_edge3 * (dve / areaC[c2])[:, None]
+        return zb, zb3
 
-    zb = np.zeros((nE, 2, nzp))
-    zb3 = np.zeros((nE, 2, nzp))
-    zb[:, 0, :] = (z_edge - zgrid[c1]) * (dv / areaC[c1])[:, None]
-    zb[:, 1, :] = (z_edge - zgrid[c2]) * (dv / areaC[c2])[:, None]
-    zb3[:, 0, :] = z_edge3 * (dv / areaC[c1])[:, None]
-    zb3[:, 1, :] = z_edge3 * (dv / areaC[c2])[:, None]
+    zb, zb3 = by_blocks(edges, nE)
 
-    zb_cell = np.zeros((mE, nC, nzp))
-    zb3_cell = np.zeros((mE, nC, nzp))
-    for i in range(mE):
-        valid = i < nEoC
-        e = eoc[:, i]
-        own_side = np.where(coe[e, 0] == np.arange(nC), 0, 1)
-        zb_cell[i] = np.where(valid[:, None], zb[e, own_side, :], 0.0)
-        zb3_cell[i] = np.where(valid[:, None],
-                               zb3[e, own_side, :] * coef_3rd_order, 0.0)
+    def cells(lo, hi):
+        """(zb_cell, zb3_cell) of cells lo..hi: (mE, n, nz+1) each."""
+        zb_cell = np.zeros((mE, hi - lo, nzp))
+        zb3_cell = np.zeros((mE, hi - lo, nzp))
+        for i in range(mE):
+            valid = i < nEoC[lo:hi]
+            e = eoc[lo:hi, i]
+            own_side = np.where(coe[e, 0] == np.arange(lo, hi), 0, 1)
+            zb_cell[i] = np.where(valid[:, None], zb[e, own_side, :], 0.0)
+            zb3_cell[i] = np.where(valid[:, None],
+                                   zb3[e, own_side, :] * coef_3rd_order, 0.0)
+        return zb_cell, zb3_cell
+
+    zb_cell, zb3_cell = by_blocks(cells, nC, axis=1)
     return zb_cell, zb3_cell
 
 

@@ -20,6 +20,11 @@ turns exchange lists into per-neighbor buffers):
   between exchanges; owned entities are exact provided halo_depth covers
   the stencil radius.
 
+shard_layout gives the integer part alone (slots, owned masks,
+schedules: ShardLayout), whose shard_mesh cuts one shard's local mesh,
+so that a rank can set up its own shard without the others' arrays;
+halo_mesh gives a shard's entities to any depth, unpadded.
+
 All of this runs once on the host in numpy, like the reference bootstrap.
 The per-entity maps are dense arrays over the global ids; the stacked
 local mesh holds CPU tensors (index tables int64), the schedules numpy.
@@ -55,6 +60,25 @@ CONN_TARGET = {"cellsOnEdge": "cell", "verticesOnEdge": "vertex",
                "edgesOnCell": "edge", "cellsOnCell": "cell",
                "verticesOnCell": "vertex", "cellsOnVertex": "cell",
                "edgesOnVertex": "edge", "edgesOnEdge": "edge"}
+# the entity kind of each connectivity table's rows
+_CONN_ROWS = {"cellsOnEdge": "edge", "verticesOnEdge": "edge",
+              "edgesOnCell": "cell", "cellsOnCell": "cell",
+              "verticesOnCell": "cell", "cellsOnVertex": "vertex",
+              "edgesOnVertex": "vertex", "edgesOnEdge": "edge"}
+
+
+# the local mesh's weight fields whose entries are zeroed where the entity
+# they weigh is not shard-local: field -> the connectivity table whose
+# missing entries zero it (triskM, the cell-assembled TRiSK matrix, both
+# its rows and its columns by edgesOnCell's)
+_ZEROED_BY = {"edgesOnCellMask": "edgesOnCell", "divW": "edgesOnCell",
+              "keW": "edgesOnCell", "edgeSignOnCell": "edgesOnCell",
+              "kiteAreasOnCell": "verticesOnCell",
+              "curlW": "edgesOnVertex", "edgeSignOnVertex": "edgesOnVertex",
+              "cellsOnVertexMask": "cellsOnVertex",
+              "kiteAreasOnVertex": "cellsOnVertex",
+              "weightsOnEdge": "edgesOnEdge"}
+ZEROED_FIELDS = frozenset(_ZEROED_BY) | {"triskM"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -237,110 +261,216 @@ def _min_layer(cells, valid, cell_layer, halo_depth):
     return np.where(m == big, halo_depth, m)
 
 
-def build_sharded_mesh(mesh: Mesh, part, halo_depth: int = 3) -> ShardedMesh:
-    """Partition a global Mesh into P padded local meshes + exchanges."""
+def _shard_sets(mesh, part, p, depth, owners, conn):
+    """Shard p's entities within `depth` halo layers: per kind (cell,
+    edge, vertex) its global ids, owned first (in global order) and then
+    the halo by (owner, global id), the owned count, and the dense map of
+    every global entity to its halo layer (-1 absent)."""
+    coe, voe, eoc, eocm, cov, covm = (conn[k] for k in (
+        "cellsOnEdge", "verticesOnEdge", "edgesOnCell", "edgesOnCellMask",
+        "cellsOnVertex", "cellsOnVertexMask"))
+    layers = _halo_layers(mesh, part, p, depth)
+    owned_cells = layers[0]
+    halo_cells = np.concatenate(layers[1:]) if depth else \
+        np.array([], dtype=np.int64)
+    clay = np.full(len(part), -1, dtype=np.int64)
+    for li, lay in enumerate(layers):
+        clay[lay] = li
+    # canonical halo order: by (owner part, global id)
+    halo_cells = halo_cells[np.lexsort((halo_cells, part[halo_cells]))]
+    cells = np.concatenate([owned_cells, halo_cells])
+
+    # edges/vertices adjacent to any local cell
+    es = np.unique(eoc[cells][eocm[cells]])
+    # edge halo layer = min layer of its locally-present cells (ref:
+    # block creator builds nHalos+1 edge halo layers keyed off the
+    # cell layers, mpas_block_creator.F:734)
+    elay = np.full(len(coe), -1, dtype=np.int64)
+    elay[es] = _min_layer(coe[es], coe[es] >= 0, clay, depth)
+    own_e = es[owners["edge"][es] == p]
+    halo_e = es[owners["edge"][es] != p]
+    halo_e = halo_e[np.lexsort((halo_e, owners["edge"][halo_e]))]
+    edges = np.concatenate([own_e, halo_e])
+
+    vs = np.unique(voe[edges])
+    # vertex halo layer = min layer of its locally-present cells (the
+    # edge-layer rule applied to the vertex's cell fan)
+    vlay = np.full(len(cov), -1, dtype=np.int64)
+    vlay[vs] = _min_layer(cov[vs], covm[vs], clay, depth)
+    own_v = vs[owners["vertex"][vs] == p]
+    halo_v = vs[owners["vertex"][vs] != p]
+    halo_v = halo_v[np.lexsort((halo_v, owners["vertex"][halo_v]))]
+    verts = np.concatenate([own_v, halo_v])
+    return {"cell": (cells, len(owned_cells), clay),
+            "edge": (edges, len(own_e), elay),
+            "vertex": (verts, len(own_v), vlay)}
+
+
+def _conn_and_owners(mesh, part):
+    conn = {k: _np(getattr(mesh, k)) for k in (
+        "cellsOnEdge", "verticesOnEdge", "edgesOnCell", "cellsOnVertex")}
+    conn["edgesOnCellMask"] = _np(mesh.edgesOnCellMask) > 0
+    conn["cellsOnVertexMask"] = _np(mesh.cellsOnVertexMask) > 0
+    # entity owners: edge/vertex owned by the part of its first cell
+    first_cell = np.where(conn["cellsOnVertexMask"][:, 0],
+                          conn["cellsOnVertex"][:, 0], 0)
+    owners = {"cell": part, "edge": part[conn["cellsOnEdge"][:, 0]],
+              "vertex": part[first_cell]}
+    return conn, owners
+
+
+def _g2l(slots_p, n_global):
+    out = np.full(n_global, -1, dtype=np.int64)
+    live = np.nonzero(slots_p >= 0)[0]
+    out[slots_p[live]] = live
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardLayout:
+    """The integer part of a ShardedMesh, every shard's: which global
+    entity each local slot holds, the owned masks and the exchange
+    schedules, without the local meshes' arrays (shard_mesh makes one
+    shard's). What ShardExchange, scatter_field and gather_field read."""
+    cell_xch: HaloExchange
+    edge_xch: HaloExchange
+    owned_cell_mask: Any
+    owned_edge_mask: Any
+    owned_vertex_mask: Any
+    cell_global: Any
+    edge_global: Any
+    vertex_global: Any
+    n_parts: int
+    halo_depth: int
+    cell_nx: Any
+    edge_nx: Any
+    vertex_nx: Any
+    sizes: Any                  # {kind: local slots (padded)}
+
+    def n_local(self, kind: str) -> int:
+        return self.sizes[kind]
+
+    def slots(self, kind: str, p: int) -> np.ndarray:
+        """Shard p's global id of each local slot of `kind` (-1 dead)."""
+        return np.asarray(getattr(self, f"{kind}_global")[p], dtype=np.int64)
+
+    def shard_mesh(self, mesh: Mesh, p: int) -> Mesh:
+        """Shard p's local Mesh (CPU tensors) cut from the global `mesh`:
+        equal to build_sharded_mesh(mesh, ...).shard(p)."""
+        return _local_mesh(mesh, {k: self.slots(k, p) for k in
+                                  ("cell", "edge", "vertex")})
+
+
+def _local_mesh(mesh: Mesh, slots) -> Mesh:
+    """The local Mesh of one shard: slots {kind: global id of each local
+    slot, -1 dead}; connectivity to entities outside it remapped to slot
+    0 with zeroed weights/signs (module docstring)."""
+    nC, nE, nV = mesh.nCells, mesh.nEdges, mesh.nVertices
+    cell_s, edge_s, vert_s = slots["cell"], slots["edge"], slots["vertex"]
+    g2l = {"cell": _g2l(cell_s, nC), "edge": _g2l(edge_s, nE),
+           "vertex": _g2l(vert_s, nV)}
+    dtype = _np(mesh.areaCell).dtype
+    fields = {}
+
+    def take1(global_arr, s, fill=0.0):
+        g = _np(global_arr)
+        live = s >= 0
+        return np.where(live.reshape(live.shape + (1,) * (g.ndim - 1)),
+                        g[np.maximum(s, 0)], fill)
+
+    for name in _CELL_FIELDS:
+        fields[name] = take1(getattr(mesh, name), cell_s)
+    for name in _EDGE_FIELDS:
+        fields[name] = take1(getattr(mesh, name), edge_s)
+    for name in _VERTEX_FIELDS:
+        fields[name] = take1(getattr(mesh, name), vert_s)
+    # avoid 1/0 explosions on dead slots
+    for name in ("invAreaCell", "invAreaTriangle", "invDvEdge", "invDcEdge"):
+        fields[name] = np.nan_to_num(fields[name], posinf=0.0, neginf=0.0)
+
+    def remap_conn(global_conn, rs, col_g2l):
+        """Remap a (n_row_global, k) index array to local, flagging the
+        entries whose target is not shard-local (their weights are
+        zeroed)."""
+        sub = _np(global_conn)[np.maximum(rs, 0)]
+        lf = np.where(sub >= 0, col_g2l[np.maximum(sub, 0)], -1)
+        dead = (rs < 0)[:, None] | (lf < 0)
+        return np.where(dead, 0, lf).astype(np.int32), dead
+
+    # connectivity + weight zeroing
+    rows_of = {"cell": cell_s, "edge": edge_s, "vertex": vert_s}
+    miss = {}
+    for name, target in CONN_TARGET.items():
+        rows = rows_of[_CONN_ROWS[name]]
+        fields[name], miss[name] = remap_conn(getattr(mesh, name), rows,
+                                              g2l[target])
+    fields["nEdgesOnCell"] = take1(mesh.nEdgesOnCell, cell_s, 0)
+    fields["nEdgesOnEdge"] = take1(mesh.nEdgesOnEdge, edge_s, 0)
+    for name, conn in _ZEROED_BY.items():
+        fields[name] = np.where(miss[conn], 0.0, take1(
+            getattr(mesh, name), rows_of[_CONN_ROWS[conn]]))
+    # cell-assembled TRiSK: the per-cell matrix rides cell rows (its
+    # indices are slot positions, unaffected by reindexing); zero rows and
+    # columns of deep-halo cells with missing edges so that their
+    # contraction contributes nothing
+    eoc_miss = miss["edgesOnCell"]
+    triskM_l = take1(mesh.triskM, cell_s)
+    triskM_l = np.where(eoc_miss[..., :, None], 0.0, triskM_l)
+    triskM_l = np.where(eoc_miss[..., None, :], 0.0, triskM_l)
+    fields["triskM"] = triskM_l
+    # slot positions are invariant under remapping (edge order within a
+    # cell's edgesOnCell row is preserved)
+    fields["edgeSlotOnCell"] = take1(mesh.edgeSlotOnCell, edge_s)
+
+    tensors = {k: torch.from_numpy(v.astype(np.int64 if k in _INT_FIELDS
+                                            else dtype))
+               for k, v in fields.items()}
+    return Mesh(
+        nCells=len(cell_s), nEdges=len(edge_s), nVertices=len(vert_s),
+        maxEdges=mesh.maxEdges, maxEdges2=mesh.maxEdges2,
+        vertexDegree=mesh.vertexDegree, on_sphere=mesh.on_sphere,
+        sphere_radius=mesh.sphere_radius, x_period=mesh.x_period,
+        y_period=mesh.y_period, **tensors)
+
+
+def shard_layout(mesh: Mesh, part, halo_depth: int = 3) -> ShardLayout:
+    """The ShardLayout of a partition of a global Mesh: integer arrays
+    and the owned masks, no local mesh array."""
     part = np.asarray(part)
     P = int(part.max()) + 1
-    nC, nE, nV = mesh.nCells, mesh.nEdges, mesh.nVertices
-    coe = _np(mesh.cellsOnEdge)
-    voe = _np(mesh.verticesOnEdge)
-    eoc = _np(mesh.edgesOnCell)
-    eocm = _np(mesh.edgesOnCellMask) > 0
-
-    # entity owners: edge/vertex owned by the part of its first cell
-    edge_owner = part[coe[:, 0]]
-    cov = _np(mesh.cellsOnVertex)
-    covm = _np(mesh.cellsOnVertexMask) > 0
-    first_cell = np.where(covm[:, 0], cov[:, 0], 0)
-    vertex_owner = part[first_cell]
+    n_global = {"cell": mesh.nCells, "edge": mesh.nEdges,
+                "vertex": mesh.nVertices}
+    conn, owners = _conn_and_owners(mesh, part)
 
     # --- local entity sets per part, and each entity's halo layer --------
-    cell_locs, edge_locs, vert_locs = [], [], []
-    cell_layers, edge_layers, vert_layers = [], [], []   # dense, -1 absent
-    owned_counts = {"cell": [], "edge": [], "vertex": []}
-    for p in range(P):
-        layers = _halo_layers(mesh, part, p, halo_depth)
-        owned_cells = layers[0]
-        halo_cells = np.concatenate(layers[1:]) if halo_depth else \
-            np.array([], dtype=np.int64)
-        clay = np.full(nC, -1, dtype=np.int64)
-        for li, lay in enumerate(layers):
-            clay[lay] = li
-        cell_layers.append(clay)
-        # canonical halo order: by (owner part, global id)
-        halo_cells = halo_cells[np.lexsort((halo_cells,
-                                            part[halo_cells]))]
-        cells = np.concatenate([owned_cells, halo_cells])
-        cell_locs.append(cells)
-        owned_counts["cell"].append(len(owned_cells))
-
-        # edges/vertices adjacent to any local cell
-        es = np.unique(eoc[cells][eocm[cells]])
-        # edge halo layer = min layer of its locally-present cells (ref:
-        # block creator builds nHalos+1 edge halo layers keyed off the
-        # cell layers, mpas_block_creator.F:734)
-        elay = np.full(nE, -1, dtype=np.int64)
-        elay[es] = _min_layer(coe[es], coe[es] >= 0, clay, halo_depth)
-        edge_layers.append(elay)
-        own_e = es[edge_owner[es] == p]
-        halo_e = es[edge_owner[es] != p]
-        halo_e = halo_e[np.lexsort((halo_e, edge_owner[halo_e]))]
-        edge_locs.append(np.concatenate([own_e, halo_e]))
-        owned_counts["edge"].append(len(own_e))
-
-        vs = np.unique(voe[edge_locs[p]])
-        # vertex halo layer = min layer of its locally-present cells (the
-        # edge-layer rule applied to the vertex's cell fan)
-        vlay = np.full(nV, -1, dtype=np.int64)
-        vlay[vs] = _min_layer(cov[vs], covm[vs], clay, halo_depth)
-        vert_layers.append(vlay)
-        own_v = vs[vertex_owner[vs] == p]
-        halo_v = vs[vertex_owner[vs] != p]
-        halo_v = halo_v[np.lexsort((halo_v, vertex_owner[halo_v]))]
-        vert_locs.append(np.concatenate([own_v, halo_v]))
-        owned_counts["vertex"].append(len(own_v))
+    sets = [_shard_sets(mesh, part, p, halo_depth, owners, conn)
+            for p in range(P)]
 
     # --- padded sizes (uniform across shards; +1 dead slot in owned) ------
-    OWN_C = max(owned_counts["cell"]) + 1
-    OWN_E = max(owned_counts["edge"]) + 1
-    OWN_V = max(owned_counts["vertex"]) + 1
-    HALO_C = max(len(c) - o for c, o in zip(cell_locs, owned_counts["cell"]))
-    HALO_E = max(len(e) - o for e, o in zip(edge_locs, owned_counts["edge"]))
-    HALO_V = max(len(v) - o for v, o in zip(vert_locs, owned_counts["vertex"]))
-    NCL, NEL, NVL = OWN_C + HALO_C, OWN_E + HALO_E, OWN_V + HALO_V
-
-    # --- slotted local id lists + global->local maps ----------------------
-    def slot(locs_p, owned_n, OWN, NL):
-        """Return padded local list (global ids, -1 for dead slots)."""
-        out = np.full(NL, -1, dtype=np.int64)
-        out[:owned_n] = locs_p[:owned_n]
-        out[OWN:OWN + (len(locs_p) - owned_n)] = locs_p[owned_n:]
-        return out
-
-    cell_slots = [slot(cell_locs[p], owned_counts["cell"][p], OWN_C, NCL)
-                  for p in range(P)]
-    edge_slots = [slot(edge_locs[p], owned_counts["edge"][p], OWN_E, NEL)
-                  for p in range(P)]
-    vert_slots = [slot(vert_locs[p], owned_counts["vertex"][p], OWN_V, NVL)
-                  for p in range(P)]
-
-    def g2l(slots_p, n_global):
-        out = np.full(n_global, -1, dtype=np.int64)
-        live = np.nonzero(slots_p >= 0)[0]
-        out[slots_p[live]] = live
-        return out
-
-    cell_g2l = [g2l(s, nC) for s in cell_slots]
-    edge_g2l = [g2l(s, nE) for s in edge_slots]
-    vert_g2l = [g2l(s, nV) for s in vert_slots]
+    # and the slotted local id lists: [owned .. pad][halo .. pad]
+    slots, own_pad, sizes = {}, {}, {}
+    for kind in ("cell", "edge", "vertex"):
+        locs = [s[kind][0] for s in sets]
+        owned_n = [s[kind][1] for s in sets]
+        OWN = max(owned_n) + 1
+        NL = OWN + max(len(x) - o for x, o in zip(locs, owned_n))
+        out = np.full((P, NL), -1, dtype=np.int64)
+        for p in range(P):
+            out[p, :owned_n[p]] = locs[p][:owned_n[p]]
+            out[p, OWN:OWN + len(locs[p]) - owned_n[p]] = \
+                locs[p][owned_n[p]:]
+        slots[kind], own_pad[kind], sizes[kind] = list(out), OWN, NL
+    g2l = {k: [_g2l(s, n_global[k]) for s in slots[k]] for k in slots}
 
     # --- exchanges (slot-ordered locs) ------------------------------------
-    def build_xch(slots, g2l_list, owners, OWN, NL):
+    def build_xch(kind):
+        sl, gl, own = slots[kind], g2l[kind], owners[kind]
+        OWN, NL = own_pad[kind], sizes[kind]
         send_lists = [[[] for _ in range(P)] for _ in range(P)]
         dest_lists = [[[] for _ in range(P)] for _ in range(P)]
         for p in range(P):
-            for q, dests in _messages(p, slots[p], owners, True):
-                send_lists[q][p] = g2l_list[q][slots[p][dests]]
+            for q, dests in _messages(p, sl[p], own, True):
+                send_lists[q][p] = gl[q][sl[p][dests]]
                 dest_lists[p][q] = dests
         S = max(1, max(len(send_lists[q][p]) for q in range(P)
                        for p in range(P)))
@@ -349,153 +479,75 @@ def build_sharded_mesh(mesh: Mesh, part, halo_depth: int = 3) -> ShardedMesh:
         for p in range(P):
             perm[p, :] = np.minimum(np.arange(NL), OWN - 1)
             for q in range(P):
-                sl = send_lists[p][q]
-                send_idx[p, q, :len(sl)] = sl
+                s = send_lists[p][q]
+                send_idx[p, q, :len(s)] = s
                 dl = dest_lists[p][q]
                 perm[p, dl] = OWN + q * S + np.arange(len(dl))
         return HaloExchange(send_idx=send_idx, perm=perm, owned_pad=OWN,
                             msg_size=S)
 
-    cell_xch = build_xch(cell_slots, cell_g2l, part, OWN_C, NCL)
-    edge_xch = build_xch(edge_slots, edge_g2l, edge_owner, OWN_E, NEL)
-
     # --- per-depth neighbor-schedule exchanges ----------------------------
-    def slot_layers(slots, layers):
-        return [np.where(s >= 0, lay[np.maximum(s, 0)], -1).astype(np.int32)
-                for s, lay in zip(slots, layers)]
-
-    cell_slot_layer = slot_layers(cell_slots, cell_layers)
-    edge_slot_layer = slot_layers(edge_slots, edge_layers)
-    vert_slot_layer = slot_layers(vert_slots, vert_layers)
     depths = sorted({1, min(2, halo_depth), halo_depth})
-    cell_nx = {d: _build_neighbor_xch(P, cell_slots, cell_g2l, part,
-                                      cell_slot_layer, d, NCL)
-               for d in depths}
-    edge_nx = {d: _build_neighbor_xch(P, edge_slots, edge_g2l, edge_owner,
-                                      edge_slot_layer, d, NEL)
-               for d in depths}
-    vertex_nx = {d: _build_neighbor_xch(P, vert_slots, vert_g2l,
-                                        vertex_owner, vert_slot_layer, d,
-                                        NVL)
-                 for d in depths}
+    nx = {}
+    for kind in ("cell", "edge", "vertex"):
+        slot_layer = [np.where(s >= 0, st[kind][2][np.maximum(s, 0)], -1)
+                      .astype(np.int32) for s, st in zip(slots[kind], sets)]
+        nx[kind] = {d: _build_neighbor_xch(P, slots[kind], g2l[kind],
+                                           owners[kind], slot_layer, d,
+                                           sizes[kind])
+                    for d in depths}
 
-    # --- local mesh arrays -------------------------------------------------
     dtype = _np(mesh.areaCell).dtype
-    fields = {}
 
-    def take1(global_arr, slots, fill=0.0):
-        g = _np(global_arr)
-        out = np.stack([np.where((s >= 0)[(...,) + (None,) * (g.ndim - 1)]
-                                 if g.ndim > 1 else (s >= 0),
-                                 g[np.maximum(s, 0)], fill)
-                        for s in slots])
+    def owned_mask(kind):
+        out = np.zeros((P, sizes[kind]), dtype=dtype)
+        for p in range(P):
+            out[p, :sets[p][kind][1]] = 1.0
         return out
 
-    for name in _CELL_FIELDS:
-        fields[name] = take1(getattr(mesh, name), cell_slots)
-    for name in _EDGE_FIELDS:
-        fields[name] = take1(getattr(mesh, name), edge_slots)
-    for name in _VERTEX_FIELDS:
-        fields[name] = take1(getattr(mesh, name), vert_slots)
-    # avoid 1/0 explosions on dead slots
-    for name in ("invAreaCell", "invAreaTriangle", "invDvEdge", "invDcEdge"):
-        fields[name] = np.nan_to_num(fields[name], posinf=0.0, neginf=0.0)
+    return ShardLayout(
+        cell_xch=build_xch("cell"), edge_xch=build_xch("edge"),
+        cell_nx=nx["cell"], edge_nx=nx["edge"], vertex_nx=nx["vertex"],
+        owned_cell_mask=owned_mask("cell"),
+        owned_edge_mask=owned_mask("edge"),
+        owned_vertex_mask=owned_mask("vertex"),
+        cell_global=np.stack(slots["cell"]).astype(np.int32),
+        edge_global=np.stack(slots["edge"]).astype(np.int32),
+        vertex_global=np.stack(slots["vertex"]).astype(np.int32),
+        n_parts=P, halo_depth=halo_depth, sizes=sizes)
 
-    def remap_conn(global_conn, row_slots, col_g2l):
-        """Remap a (n_row_global, k) index array to local, flagging the
-        entries whose target is not shard-local (their weights are
-        zeroed)."""
-        conn = _np(global_conn)
-        out = np.zeros((P,) + (len(row_slots[0]),) + conn.shape[1:],
-                       dtype=np.int32)
-        miss = np.zeros(out.shape, dtype=bool)
-        for p in range(P):
-            rs = row_slots[p]
-            sub = conn[np.maximum(rs, 0)]
-            lf = np.where(sub >= 0, col_g2l[p][np.maximum(sub, 0)], -1)
-            dead = (rs < 0)[:, None] | (lf < 0)
-            out[p] = np.where(dead, 0, lf)
-            miss[p] = dead
-        return out, miss
 
-    # connectivity + weight zeroing
-    eoc_l, eoc_miss = remap_conn(mesh.edgesOnCell, cell_slots, edge_g2l)
-    coc_l, coc_miss = remap_conn(mesh.cellsOnCell, cell_slots, cell_g2l)
-    voc_l, voc_miss = remap_conn(mesh.verticesOnCell, cell_slots, vert_g2l)
-    coe_l, coe_miss = remap_conn(mesh.cellsOnEdge, edge_slots, cell_g2l)
-    voe_l, voe_miss = remap_conn(mesh.verticesOnEdge, edge_slots, vert_g2l)
-    eoe_l, eoe_miss = remap_conn(mesh.edgesOnEdge, edge_slots, edge_g2l)
-    cov_l, cov_miss = remap_conn(mesh.cellsOnVertex, vert_slots, cell_g2l)
-    eov_l, eov_miss = remap_conn(mesh.edgesOnVertex, vert_slots, edge_g2l)
+def build_sharded_mesh(mesh: Mesh, part, halo_depth: int = 3) -> ShardedMesh:
+    """Partition a global Mesh into P padded local meshes + exchanges."""
+    lay = shard_layout(mesh, part, halo_depth)
+    return sharded_mesh(lay, [lay.shard_mesh(mesh, p)
+                              for p in range(lay.n_parts)])
 
-    def local_rows(arr2d, row_slots, miss):
-        return np.where(miss, 0.0, take1(arr2d, row_slots))
 
-    fields["edgesOnCell"] = eoc_l
-    fields["cellsOnCell"] = coc_l
-    fields["verticesOnCell"] = voc_l
-    fields["cellsOnEdge"] = coe_l
-    fields["verticesOnEdge"] = voe_l
-    fields["edgesOnEdge"] = eoe_l
-    fields["cellsOnVertex"] = cov_l
-    fields["edgesOnVertex"] = eov_l
-    fields["nEdgesOnCell"] = take1(mesh.nEdgesOnCell, cell_slots, 0)
-    fields["nEdgesOnEdge"] = take1(mesh.nEdgesOnEdge, edge_slots, 0)
-
-    fields["edgesOnCellMask"] = local_rows(mesh.edgesOnCellMask, cell_slots,
-                                           eoc_miss)
-    fields["divW"] = local_rows(mesh.divW, cell_slots, eoc_miss)
-    fields["keW"] = local_rows(mesh.keW, cell_slots, eoc_miss)
-    fields["curlW"] = local_rows(mesh.curlW, vert_slots, eov_miss)
-    fields["edgeSignOnCell"] = local_rows(mesh.edgeSignOnCell, cell_slots,
-                                          eoc_miss)
-    fields["kiteAreasOnCell"] = local_rows(mesh.kiteAreasOnCell, cell_slots,
-                                           voc_miss)
-    fields["edgeSignOnVertex"] = local_rows(mesh.edgeSignOnVertex, vert_slots,
-                                            eov_miss)
-    fields["cellsOnVertexMask"] = local_rows(mesh.cellsOnVertexMask,
-                                             vert_slots, cov_miss)
-    fields["kiteAreasOnVertex"] = local_rows(mesh.kiteAreasOnVertex,
-                                             vert_slots, cov_miss)
-    fields["weightsOnEdge"] = local_rows(mesh.weightsOnEdge, edge_slots,
-                                         eoe_miss)
-    # cell-assembled TRiSK: the per-cell matrix rides cell rows (its
-    # indices are slot positions, unaffected by reindexing); zero rows and
-    # columns of deep-halo cells with missing edges so that their
-    # contraction contributes nothing
-    triskM_l = take1(mesh.triskM, cell_slots)
-    triskM_l = np.where(eoc_miss[..., :, None], 0.0, triskM_l)
-    triskM_l = np.where(eoc_miss[..., None, :], 0.0, triskM_l)
-    fields["triskM"] = triskM_l
-    # slot positions are invariant under remapping (edge order within a
-    # cell's edgesOnCell row is preserved)
-    fields["edgeSlotOnCell"] = take1(mesh.edgeSlotOnCell, edge_slots)
-
-    tensors = {}
-    for k, v in fields.items():
-        v = v.astype(np.int64 if k in _INT_FIELDS else dtype)
-        tensors[k] = torch.from_numpy(v)
-
-    local_mesh = Mesh(
-        nCells=NCL, nEdges=NEL, nVertices=NVL,
-        maxEdges=mesh.maxEdges, maxEdges2=mesh.maxEdges2,
-        vertexDegree=mesh.vertexDegree, on_sphere=mesh.on_sphere,
-        sphere_radius=mesh.sphere_radius, x_period=mesh.x_period,
-        y_period=mesh.y_period, **tensors)
-
-    def owned_mask(slots, owned_n):
-        out = np.zeros((P, len(slots[0])), dtype=dtype)
-        for p in range(P):
-            out[p, :owned_n[p]] = 1.0
-        return out
-
+def sharded_mesh(lay: ShardLayout, shards) -> ShardedMesh:
+    """The ShardedMesh of a layout and its P local meshes (in order)."""
+    stacked = dataclasses.replace(shards[0], **{
+        f.name: torch.stack([getattr(m, f.name) for m in shards])
+        for f in dataclasses.fields(shards[0])
+        if isinstance(getattr(shards[0], f.name), torch.Tensor)})
     return ShardedMesh(
-        mesh=local_mesh, cell_xch=cell_xch, edge_xch=edge_xch,
-        cell_nx=cell_nx, edge_nx=edge_nx, vertex_nx=vertex_nx,
-        owned_cell_mask=owned_mask(cell_slots, owned_counts["cell"]),
-        owned_edge_mask=owned_mask(edge_slots, owned_counts["edge"]),
-        owned_vertex_mask=owned_mask(vert_slots, owned_counts["vertex"]),
-        cell_global=np.stack(cell_slots).astype(np.int32),
-        edge_global=np.stack(edge_slots).astype(np.int32),
-        vertex_global=np.stack(vert_slots).astype(np.int32),
-        n_parts=P, halo_depth=halo_depth)
+        mesh=stacked, cell_xch=lay.cell_xch, edge_xch=lay.edge_xch,
+        cell_nx=lay.cell_nx, edge_nx=lay.edge_nx, vertex_nx=lay.vertex_nx,
+        owned_cell_mask=lay.owned_cell_mask,
+        owned_edge_mask=lay.owned_edge_mask,
+        owned_vertex_mask=lay.owned_vertex_mask,
+        cell_global=lay.cell_global, edge_global=lay.edge_global,
+        vertex_global=lay.vertex_global, n_parts=lay.n_parts,
+        halo_depth=lay.halo_depth)
+
+
+def halo_mesh(mesh: Mesh, part, p: int, depth: int):
+    """(local Mesh, {kind: global ids}) of shard p's entities within
+    `depth` halo layers, unpadded, owned first: a mesh on which a
+    computation of shard p whose stencils reach r layers is exact on the
+    entities of the first depth - r layers."""
+    part = np.asarray(part)
+    conn, owners = _conn_and_owners(mesh, part)
+    sets = _shard_sets(mesh, part, p, depth, owners, conn)
+    ids = {k: v[0] for k, v in sets.items()}
+    return _local_mesh(mesh, ids), ids

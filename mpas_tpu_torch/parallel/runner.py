@@ -36,9 +36,13 @@ import torch
 import torch.distributed as dist
 
 from mpas_tpu_torch.containers import resolve_device
+from mpas_tpu_torch.framework.timers import span
 from mpas_tpu_torch.parallel.layout import (HaloExchange, NeighborExchange,
                                             ShardedMesh)
 from mpas_tpu_torch.parallel.partition import _np
+
+
+HALO_SPAN = "par.halo"
 
 
 class ShardGroup:
@@ -185,7 +189,9 @@ class ShardExchange:
     atmosphere's acoustic loop, mpas_atm_time_integration.F:792,845, and
     the ocean barotropic subcycle's restricted 'subcycleFields' group,
     mpas_ocn_time_integration_split.F:771). Each exchange indexes dim 0
-    only, whatever the trailing dims."""
+    only, whatever the trailing dims, and is one span, HALO_SPAN: its
+    sends, receives and splice. smesh: a ShardedMesh or the ShardLayout
+    of one."""
 
     def __init__(self, smesh: ShardedMesh, group: ShardGroup):
         make = _LoopbackExchange if group.loopback else _RankExchange
@@ -208,13 +214,16 @@ class ShardExchange:
         return table[max(table)]
 
     def cell(self, x, depth=None):
-        return self._pick(self._c, depth, self._full)(x)
+        with span(HALO_SPAN):
+            return self._pick(self._c, depth, self._full)(x)
 
     def edge(self, x, depth=None):
-        return self._pick(self._e, depth, self._full)(x)
+        with span(HALO_SPAN):
+            return self._pick(self._e, depth, self._full)(x)
 
     def vertex(self, x, depth=None):
-        return self._pick(self._v, depth, self._full)(x)
+        with span(HALO_SPAN):
+            return self._pick(self._v, depth, self._full)(x)
 
 
 def halo_exchange(xch: HaloExchange, field, group: ShardGroup):

@@ -11,6 +11,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from mpas_tpu_torch.cores.atmosphere import distributed as adist
 from mpas_tpu_torch.cores.atmosphere.config import AtmConfig
 from mpas_tpu_torch.cores.atmosphere.init_jw import init_jw
 from mpas_tpu_torch.cores.atmosphere.time_integration import (init_carry,
@@ -23,13 +24,16 @@ from mpas_tpu_torch.cores.seaice import analysis as seaice_analysis
 from mpas_tpu_torch.framework.timers import span, spanned
 from mpas_tpu_torch.mesh.planar import box_hex_mesh
 from mpas_tpu_torch.mesh.sphere import icosahedral_mesh
+from mpas_tpu_torch.parallel.partition import sfc_partition
+from mpas_tpu_torch.parallel.runner import (HALO_SPAN, ShardExchange,
+                                            ShardGroup, place)
 from mpas_tpu_torch.tools import landice_dome as ld
 from mpas_tpu_torch.tools import ocean_global as og
 from mpas_tpu_torch.tools import seaice_box as sb
 
 torch.set_num_threads(1)
 
-PREFIXES = ("atm.", "ocn.", "li.", "si.")
+PREFIXES = ("atm.", "ocn.", "li.", "si.", "par.")
 
 
 def opened(fn):
@@ -110,6 +114,47 @@ def test_srk3_step_spans_and_bitwise_outputs(split):
         "atm.vert_imp_coefs": 3 * split, "atm.acoustic": stage,
         "atm.recover": stage, "atm.diagnostics": stage,
         "atm.transport": 1, "atm.reconstruct_winds": 1}
+    assert_identical(plain, traced)
+
+
+class _Counted:
+    """An exchange's hooks, each call counted, then passed on."""
+
+    def __init__(self, xch):
+        self.xch, self.calls = xch, 0
+
+    def __getattr__(self, kind):
+        def call(x, depth=None):
+            self.calls += 1
+            return getattr(self.xch, kind)(x, depth)
+        return call
+
+
+def test_halo_span_opens_once_per_exchange():
+    """Each ShardExchange call is one par.halo span: three direct calls,
+    and every exchange of a sharded srk3_step; the step's outputs the
+    same bit for bit with the profiler on and off."""
+    mesh = icosahedral_mesh(4, lloyd_iters=1)
+    cfg = AtmConfig(config_nvertlevels=6, config_len_disp=1920000.0,
+                    config_dt=1200.0)
+    grid, state, diag = init_jw(mesh, cfg, case=2)
+    carry = init_carry(grid, cfg, state, diag, cfg.config_dt)
+    satm = adist.shard_atm_grid(grid, sfc_partition(mesh, 2))
+    group = ShardGroup(2, torch.device("cpu"))
+    grid_l = satm.local(group, torch.float64)
+    carry_l = place(adist.shard_atm_carry(satm, carry), group,
+                    torch.float64)
+    xch = ShardExchange(satm.smesh, group)
+    u, w = carry_l.state.u, carry_l.state.w
+    vort = carry_l.sdiag_vort
+    _, spans = opened(lambda: (xch.cell(w), xch.edge(u, depth=1),
+                               xch.vertex(vort)))
+    assert spans == {HALO_SPAN: 3}
+    counted = _Counted(xch)
+    plain = srk3_step(grid_l, cfg, carry_l, cfg.config_dt, xch=xch)
+    traced, spans = opened(lambda: srk3_step(grid_l, cfg, carry_l,
+                                             cfg.config_dt, xch=counted))
+    assert counted.calls > 50 and spans[HALO_SPAN] == counted.calls
     assert_identical(plain, traced)
 
 
