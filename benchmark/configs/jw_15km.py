@@ -6,9 +6,9 @@ The program's path is the port's sharded one, set up by each rank for its
 own shard from the mesh file and the partition alone
 (cores/atmosphere/distributed.py: shard_atm_local runs init_jw on the
 shard's entities two layers beyond its halo and cuts the shard's rows,
-float32 on its card; then init_carry and one halo refresh), and stepped
-by time_integration.srk3_step with the halo exchanges of ShardExchange
-over the process group (NCCL on the cards). The seeded inputs are
+float32 on its card; then start_carry: init_carry and one halo refresh),
+and stepped by time_integration.srk3_step with the halo exchanges of
+ShardExchange over the process group (NCCL on the cards). The seeded inputs are
 jw_120km's (its make_inputs), drawn from the globe's lat/lon on the host
 and cut to the shard by the port's scatter_field. prepare() builds the
 mesh file and the partition's ShardLayout once a checkout
@@ -18,7 +18,9 @@ on one device (the port's loopback).
 The check. The globe's float64 reference fits on no card, so it runs on
 patches (benchmark/reference/mesh/patch.py, seeded_centres): seeded caps
 of compared cells, the first on a shard boundary with every shard within
-its compared layers, more until every rank owns a compared cell, each
+its compared layers, more until every rank owns a compared cell, then
+more on shard boundaries under JW's jet (the configuration's band of
+latitude) until every rank owns a compared cell there, each
 with a halo as deep as the domain of dependence of
 the reference's init and start_at steps (patch_halo: measured with NaN
 ghosts, 34 layers the first step from the init's 2-layer band, 30 each
@@ -27,9 +29,10 @@ entities, copied on its card; gather brings them to rank 0 in patch
 order, the ghosts NaN. The numbers and their names are jw_120km's:
 start_<field> and step_<field> over the compared cells (u: the edges
 between two of them), max |program - reference| / max |reference|, and
-step_k2 over the compared cells' rows of the sampled step's K2 calls;
-the traffic's limits name those compared (PERF.md: u, at the equator
-where these patches sit, reads any float32 run's rounding).
+step_k2 over the compared cells' rows of the sampled step's K2 calls.
+u's largest lies under the jet, so a wind moved on one rank shows
+there, well above the float32 rounding of the weak winds where the
+shards meet on the equator.
 """
 
 from __future__ import annotations
@@ -59,6 +62,14 @@ INIT_REACH = 2
 # the port's files the cached layout is made by
 LAYOUT_SOURCES = ("mpas_tpu_torch/parallel/layout.py",
                   "mpas_tpu_torch/parallel/partition.py")
+
+
+def centres_of(params, mesh, part, seed):
+    """The seed's patch centres (patch.seeded_centres)."""
+    p = params["patch"]
+    band = tuple(np.radians(p["band_lat_deg"]))
+    return patches.seeded_centres(mesh, part, seed, p["compared_layers"],
+                                  band)
 
 
 def start_at(traffic):
@@ -178,8 +189,7 @@ class ShardedPatchCase:
 
     def __init__(self, params, traffic, seed, device, host, parts):
         from mpas_tpu_torch.cores.atmosphere import distributed as adist
-        from mpas_tpu_torch.parallel.runner import (ShardExchange,
-                                                    scatter_field)
+        from mpas_tpu_torch.parallel.runner import scatter_field
         self.device, self.host = device, host
         self.group, self.layout = host.group, host.layout
         self.dtype, self.host_group = host.dtype, host.host
@@ -202,15 +212,13 @@ class ShardedPatchCase:
             state, u=state.u + du[:, None],
             scalars=q[:, :, None].expand(-1, nz, ns).contiguous())
         diag = dataclasses.replace(diag, ru=diag.ru + rho_edge * du[:, None])
-        self.xch = ShardExchange(self.layout, g)
-        carry = self.ti.init_carry(host.grid, host.cfg, state, diag, self.dt)
-        self.carry = adist.refresh_carry(carry, self.xch, self.layout, g)
+        self.carry, self.xch = adist.start_carry(
+            host.grid, host.cfg, state, diag, self.dt, self.layout, g)
         self.grid, self.cfg = host.grid, host.cfg
         self.steps_done = 0
         # the patches, and this process's owned rows of them
         p = params["patch"]
-        self.centres = patches.seeded_centres(host.mesh, host.part, seed,
-                                              p["compared_layers"])
+        self.centres = centres_of(params, host.mesh, host.part, seed)
         self.halo = patch_halo(params, start_at(traffic))
         cells, layer, edges, verts = patches.patch_entities(
             host.mesh, self.centres, p["compared_layers"], self.halo)
@@ -399,11 +407,11 @@ class ControlCase:
                               host=host_init(impl, params, traffic, mesh))
         self.device, self.dt, self.k2_sites = device, self.case.dt, \
             impl.k2_sites
-        compared = params["patch"]["compared_layers"]
-        self.centres = patches.seeded_centres(mesh, part, seed, compared)
+        self.centres = centres_of(params, mesh, part, seed)
         self.halo = patch_halo(params, start_at(traffic))
         cells, _, edges, verts = patches.patch_entities(
-            mesh, self.centres, compared, self.halo)
+            mesh, self.centres, params["patch"]["compared_layers"],
+            self.halo)
         self.ids = {mesh.nCells: cells, mesh.nEdges: edges,
                     mesh.nVertices: verts}
         for _ in range(traffic["warm_steps"]):
@@ -478,15 +486,18 @@ def _row_kinds(obj, counts, out=None):
     return out
 
 
-def reference_on_patch(params, traffic, inputs, patch, device, dtype,
-                       tf32=False, host=None):
-    """JwCase of the reference on `patch` in `dtype` (its own init, the
-    seeded inputs' patch rows), NaN where the init is wrong: the ghosts,
-    the outermost INIT_REACH layers of cells and the edges to a ghost;
-    host: the reference's host_init on the patch, where the caller has
-    it."""
-    impl = reference_impl()
+def on_patch(impl, params, traffic, inputs, patch, device, dtype,
+             tf32=False, host=None):
+    """JwCase of impl (the reference's or the program's) on `patch` in
+    `dtype` (impl's own init, the seeded inputs' patch rows), NaN where
+    the init is wrong: the ghosts, the outermost INIT_REACH layers of
+    cells and the edges to a ghost; host: impl's host_init on the patch,
+    where the caller has it."""
     m = patch.mesh
+    if impl.name == "program":
+        from mpas_tpu_torch.mesh.mesh import Mesh
+        m = Mesh(**{f.name: getattr(m, f.name)
+                    for f in dataclasses.fields(Mesh)})
     counts = {"cell": m.nCells, "edge": m.nEdges, "vertex": m.nVertices}
     cfg, grid, state, diag = host or host_init(impl, params, traffic, mesh=m)
     band = patches.bad_rows(patch, INIT_REACH)
@@ -539,8 +550,8 @@ def check(params, traffic, inputs, rec, device):
     patch = patches.build_patch(inputs["mesh"], rec.start.centres,
                                 params["patch"]["compared_layers"],
                                 rec.start.halo)
-    ref = reference_on_patch(params, traffic, inputs, patch, device,
-                             torch.float64)
+    ref = on_patch(reference_impl(), params, traffic, inputs, patch,
+                   device, torch.float64)
     for _ in range(rec.start_at):
         ref.step()
     out = patch_gaps("start", rec.start.carry.state, ref.carry.state, patch)
@@ -552,40 +563,50 @@ def check(params, traffic, inputs, rec, device):
     return out
 
 
-def control(params, traffic, seed, device):
-    """The control's numbers (benchmark/limits.py's rule), on one device:
-    the reference in float32 with its K2 in TF32 in the program's place,
-    on the seed's patches with a halo for one step more; start_* after
-    start_at steps from the init; step_* one step from the control's own
-    state there, the float64 reference from the same state; step_k2 that
-    step's K2 calls at the compared cells' rows."""
-    from benchmark.harness.calls import recording
+@functools.lru_cache(maxsize=1)
+def _mesh_file(path):
+    """The mesh file as the reference reads it, kept from seed to seed."""
     from benchmark.harness.meshfile import load_reference
-    mesh = load_reference(mesh_path(params))
+    return load_reference(path)
+
+
+def readings(params, traffic, seed, device, program):
+    """The numbers of check() for the limits (benchmark/limits.py's rule),
+    on one device, on the seed's patches with a halo for one step more:
+    program, the port's one-card path (jw_120km's JwCase of the program)
+    on the patches in the configuration's dtype, the row-wise arithmetic
+    of the cell's shards; else the control, the reference in float32
+    with its K2 in TF32. start_* after start_at steps from the side's
+    own init; step_* one step from its state there, the float64
+    reference from the same state; step_k2 that step's K2 calls at the
+    compared cells' rows."""
+    from benchmark.harness.calls import recording
+    mesh = _mesh_file(str(mesh_path(params)))
     part, _ = layout_of(params)
     inputs = make_inputs(params, seed, mesh)
-    compared = params["patch"]["compared_layers"]
-    centres = patches.seeded_centres(mesh, part, seed, compared)
     n = start_at(traffic)
-    patch = patches.build_patch(mesh, centres, compared,
+    patch = patches.build_patch(mesh, centres_of(params, mesh, part, seed),
+                                params["patch"]["compared_layers"],
                                 patch_halo(params, n + 1))
-    del mesh
     host = host_init(reference_impl(), params, traffic, mesh=patch.mesh)
-    sides = [reference_on_patch(params, traffic, inputs, patch, device,
-                                dtype, tf32=dtype == torch.float32,
-                                host=host)
-             for dtype in (torch.float32, torch.float64)]
+    ref = on_patch(reference_impl(), params, traffic, inputs, patch, device,
+                   torch.float64, host=host)
+    if program:
+        side = on_patch(program_impl(), params, traffic, inputs, patch,
+                        device, getattr(torch, params["dtype"]))
+    else:
+        side = on_patch(reference_impl(), params, traffic, inputs, patch,
+                        device, torch.float32, tf32=True, host=host)
     for _ in range(n):
-        for s in sides:
-            s.step()
-    ctl, ref = sides
-    out = patch_gaps("start", ctl.carry.state, ref.carry.state, patch)
-    ref.carry = _ref_carry(ctl.carry)
+        side.step()
+        ref.step()
+    out = patch_gaps("start", side.carry.state, ref.carry.state, patch)
+    ref.carry = _ref_carry(side.carry)
     calls = []
-    with recording(ctl.k2_sites, calls):
-        ctl.step()
+    with recording(side.k2_sites, calls):
+        side.step()
     ref.step()
-    out.update(patch_gaps("step", ctl.carry.state, ref.carry.state, patch))
+    out.update(patch_gaps("step", side.carry.state, ref.carry.state, patch))
     rows = torch.from_numpy(patch.compared_cells).to(device)
     out["step_k2"] = k2_gap([tuple(t[rows] for t in c) for c in calls])
     return out

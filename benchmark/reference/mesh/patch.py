@@ -126,14 +126,18 @@ def patch_entities(mesh, centres, compared: int, halo: int):
     return cells, layer_of, edges, vertices
 
 
-def seeded_centres(mesh, part, seed: int, compared: int) -> list[int]:
+def seeded_centres(mesh, part, seed: int, compared: int,
+                   band) -> list[int]:
     """Centres, drawn from `seed`, of patches whose compared cells hold
     cells of every part of `part` (a partition of the cells) and cross
     its boundaries: one cell on a boundary with every part within
     `compared` layers, where there is one; else a cell where three or
     more parts meet (the cell and its neighbours), or else a cell on a
     boundary, and then, while a part has no compared cell, a cell of
-    that part on its boundary."""
+    that part on its boundary; then, while a part has no compared cell
+    within `band`, (lo, hi) |latitude| in radians, a cell of that part
+    on its boundary within the band, one that reaches another such part
+    where there is one."""
     rng = np.random.default_rng(int(seed) % 2 ** 63)
     coc = mesh.cellsOnCell.numpy()
     real = np.arange(coc.shape[1])[None, :] \
@@ -153,13 +157,24 @@ def seeded_centres(mesh, part, seed: int, compared: int) -> list[int]:
     if len(first) == 0:
         first = np.nonzero(meet >= 2)[0]
     centres = [int(rng.choice(first))]
-    while True:
-        cells = np.concatenate(cell_layers(mesh, centres, compared))
-        missing = np.setdiff1d(np.unique(part), part[cells])
-        if len(missing) == 0:
-            return centres
-        edge = np.nonzero((part == missing[0]) & (meet >= 2))[0]
-        centres.append(int(rng.choice(edge)))
+    lat = np.abs(mesh.latCell.numpy())
+    for inside in (np.ones(mesh.nCells, dtype=bool),
+                   (lat >= band[0]) & (lat <= band[1])):
+        while True:
+            cells = np.concatenate(cell_layers(mesh, centres, compared))
+            cells = cells[inside[cells]]
+            missing = np.setdiff1d(np.unique(part), part[cells])
+            if len(missing) == 0:
+                break
+            edge = (part == missing[0]) & (meet >= 2) & inside
+            if not edge.any():
+                raise ValueError(f"part {missing[0]} has no boundary cell "
+                                 "in the band")
+            others = np.bitwise_or.reduce(np.left_shift(1, missing[1:]))
+            both = edge & ((seen & others) != 0)
+            centres.append(int(rng.choice(np.nonzero(
+                both if both.any() else edge)[0])))
+    return centres
 
 
 def build_patch(mesh, centres, compared: int, halo: int) -> Patch:

@@ -12,9 +12,10 @@ every exchange moves whole columns, the decomposition the reference uses.
 The sharded grid, state and carry are host-stacked (P, ...) CPU tensors;
 `ShardedAtm.local` and runner.place turn them into what a ShardGroup
 holds: all shards as one flat layout (loopback) or one rank's shard.
-Where the globe's fields do not fit a host, shard_atm_setup gives a rank
-its own shard's grid and carry from the mesh and the partition alone,
-equal on every row to the cut of the global ones.
+Where the globe's fields do not fit a host, shard_atm_local gives a rank
+its own shard's grid, state and diagnostics from the mesh and the
+partition alone, and start_carry its carry, equal on every row to the
+cut of the global ones.
 """
 
 from __future__ import annotations
@@ -33,8 +34,7 @@ from mpas_tpu_torch.cores.atmosphere.time_integration import (AtmCarry,
 from mpas_tpu_torch.mesh.mesh import Mesh
 from mpas_tpu_torch.parallel.layout import (ZEROED_FIELDS, ShardedMesh,
                                             ShardLayout, build_sharded_mesh,
-                                            halo_mesh, shard_layout,
-                                            sharded_mesh)
+                                            halo_mesh, sharded_mesh)
 from mpas_tpu_torch.parallel.partition import _np
 from mpas_tpu_torch.parallel.runner import (ShardExchange, ShardGroup,
                                             place, pmax_owned, psum_owned,
@@ -256,18 +256,17 @@ INIT_REACH = 2
 _KINDS = ("cell", "edge", "vertex")
 
 
-def shard_atm_init(mesh: Mesh, part, layout: ShardLayout, p: int, init,
-                   init_reach: int = INIT_REACH):
+def shard_atm_init(mesh: Mesh, part, layout: ShardLayout, p: int, init):
     """Shard p's (AtmGrid, AtmState, AtmDiag), float64 CPU tensors, equal
     to shard p of shard_atm_grid(grid, part) and of shard_atm_state(...,
     state, diag) for (grid, state, diag) = init(mesh), without a global
     field: init (a mesh -> (grid, state, diag) map such as init_jw, its
-    stencils init_reach cell layers deep) runs on halo_mesh's entities of
-    shard p within layout.halo_depth + init_reach layers, exact on those
+    stencils INIT_REACH cell layers deep) runs on halo_mesh's entities of
+    shard p within layout.halo_depth + INIT_REACH layers, exact on those
     of the layout's halo_depth, whose rows are then cut from it. The
     mesh's fields that init rescales or sets (radius, Coriolis) are its
     rows too, zeroed where layout.shard_mesh zeroes a weight."""
-    big, ids = halo_mesh(mesh, part, p, layout.halo_depth + init_reach)
+    big, ids = halo_mesh(mesh, part, p, layout.halo_depth + INIT_REACH)
     grid, state, diag = init(big)
     n_global = {"cell": mesh.nCells, "edge": mesh.nEdges,
                 "vertex": mesh.nVertices}
@@ -323,12 +322,35 @@ def _stack(objs):
         if isinstance(getattr(first, f.name), torch.Tensor)})
 
 
-def refresh_carry(carry_l: AtmCarry, xch: ShardExchange, layout,
-                  group: ShardGroup) -> AtmCarry:
-    """Every field of a placed carry with its halo refreshed from its
-    owners (full depth) and its dead slots at _FIELDS' values: a carry
-    computed on the shards alone made equal, on every row, to the cut of
-    the global carry."""
+def shard_atm_local(mesh: Mesh, part, layout: ShardLayout,
+                    group: ShardGroup, dtype, init):
+    """(grid_l, state_l, diag_l): `group`'s shards' grid, state and
+    diagnostics by shard_atm_init (init: mesh -> (grid, state, diag)), on
+    the group's device in `dtype`. A rank (group.rank r) builds shard r
+    alone, loopback every shard."""
+    shards = range(layout.n_parts) if group.loopback else (group.rank,)
+    made = [shard_atm_init(mesh, part, layout, p, init) for p in shards]
+    if not group.loopback:
+        return tuple(x.to(group.device, dtype) for x in made[0])
+    grids, states, diags = zip(*made)
+    satm = ShardedAtm(grid=_stack(grids), smesh=sharded_mesh(
+        layout, [g.mesh for g in grids]))
+    return (satm.local(group, dtype), place(_stack(states), group, dtype),
+            place(_stack(diags), group, dtype))
+
+
+def start_carry(grid_l: AtmGrid, cfg: AtmConfig, state_l: AtmState,
+                diag_l: AtmDiag, dt, layout: ShardLayout,
+                group: ShardGroup):
+    """(carry_l, xch): init_carry on `group`'s shards (shard_atm_local's
+    grid, state and diagnostics, the state changed as the caller wants),
+    then every field's halo refreshed from its owners through xch, the
+    group's ShardExchange, and its dead slots set to _FIELDS' values.
+    Equal on every row to place(shard_atm_carry(satm, carry)) of the
+    global carry made from the same state, satm = shard_atm_grid(grid,
+    part)."""
+    xch = ShardExchange(layout, group)
+    carry_l = init_carry(grid_l, cfg, state_l, diag_l, dt)
     dead = {}
     for kind in _KINDS:
         d = np.asarray(getattr(layout, f"{kind}_global")) < 0
@@ -347,46 +369,7 @@ def refresh_carry(carry_l: AtmCarry, xch: ShardExchange, layout,
             f.name: each(v) if dataclasses.is_dataclass(v) else fix(f.name, v)
             for f in dataclasses.fields(obj)
             for v in (getattr(obj, f.name),)})
-    return each(carry_l)
-
-
-def shard_atm_local(mesh: Mesh, part, layout: ShardLayout,
-                    group: ShardGroup, dtype, init):
-    """(grid_l, state_l, diag_l): `group`'s shards' grid, state and
-    diagnostics by shard_atm_init (init: mesh -> (grid, state, diag)), on
-    the group's device in `dtype`. A rank (group.rank r) builds shard r
-    alone, loopback every shard."""
-    shards = range(layout.n_parts) if group.loopback else (group.rank,)
-    made = [shard_atm_init(mesh, part, layout, p, init) for p in shards]
-    if not group.loopback:
-        return tuple(x.to(group.device, dtype) for x in made[0])
-    grids, states, diags = zip(*made)
-    satm = ShardedAtm(grid=_stack(grids), smesh=sharded_mesh(
-        layout, [g.mesh for g in grids]))
-    return (satm.local(group, dtype), place(_stack(states), group, dtype),
-            place(_stack(diags), group, dtype))
-
-
-def shard_atm_setup(mesh: Mesh, part, cfg: AtmConfig, group: ShardGroup,
-                    dtype, init, dt, perturb=None, layout=None,
-                    halo_depth: int = ATM_HALO_DEPTH):
-    """(grid_l, carry_l, xch) of `group`'s shards set up from the global
-    mesh and partition alone: shard_atm_local's grid, state and
-    diagnostics; perturb(grid_l, state_l, diag_l) -> (state_l, diag_l),
-    where given, changes the initial state; then init_carry on the shards
-    and one refresh_carry through xch, the group's ShardExchange. Equal
-    to satm.local(group, dtype) and place(shard_atm_carry(satm, carry))
-    of the global grid and carry made the same way, satm =
-    shard_atm_grid(grid, part). layout: the partition's shard_layout
-    where the caller has it."""
-    layout = layout or shard_layout(mesh, part, halo_depth)
-    grid_l, state_l, diag_l = shard_atm_local(mesh, part, layout, group,
-                                              dtype, init)
-    if perturb is not None:
-        state_l, diag_l = perturb(grid_l, state_l, diag_l)
-    xch = ShardExchange(layout, group)
-    carry_l = init_carry(grid_l, cfg, state_l, diag_l, dt)
-    return grid_l, refresh_carry(carry_l, xch, layout, group), xch
+    return each(carry_l), xch
 
 
 def make_run_steps_atm(satm: ShardedAtm, cfg: AtmConfig, group: ShardGroup):

@@ -1,5 +1,6 @@
 """A shard's set-up from the global mesh and partition alone
-(cores/atmosphere/distributed.py:shard_atm_setup) against the global cut
+(cores/atmosphere/distributed.py: shard_atm_local, then start_carry, as
+benchmark/configs/jw_15km.py makes it) against the global cut
 (shard_atm_grid and shard_atm_carry of the global init and carry), on the
 CPU in float64 at 2,562 cells over 4 shards: every owned, halo and dead
 row of the grid, the state and the carry equal bit for bit, in loopback
@@ -7,7 +8,7 @@ and over 4 gloo ranks; no rank makes the global init, grid or carry; and
 three steps of each equal; init_jw's blocks of columns change no bit."""
 
 import dataclasses
-import functools
+import pickle
 
 import numpy as np
 import pytest
@@ -47,6 +48,19 @@ def perturb(grid, state, diag):
         .expand_as(state.scalars).contiguous()
     return (dataclasses.replace(state, u=state.u + du, scalars=q),
             dataclasses.replace(diag, ru=diag.ru + rho_edge * du))
+
+
+def set_up(mesh, part, group, init_fn=init, layout=None):
+    """(grid, carry, xch) of `group`'s shards: shard_atm_local, the state
+    changed by perturb, start_carry; layout: the partition's, made here
+    where not given."""
+    layout = layout or shard_layout(mesh, part, adist.ATM_HALO_DEPTH)
+    grid, state, diag = adist.shard_atm_local(mesh, part, layout, group,
+                                              torch.float64, init_fn)
+    state, diag = perturb(grid, state, diag)
+    carry, xch = adist.start_carry(grid, CFG, state, diag, DT, layout,
+                                   group)
+    return grid, carry, xch
 
 
 @pytest.fixture(scope="module")
@@ -99,9 +113,7 @@ def stepped(grid, carry, xch):
 
 def test_loopback_setup_is_the_global_cut(globe):
     group = ShardGroup(P, torch.device("cpu"))
-    grid, carry, xch = adist.shard_atm_setup(
-        globe.mesh, globe.part, CFG, group, torch.float64, init, DT,
-        perturb=perturb)
+    grid, carry, xch = set_up(globe.mesh, globe.part, group)
     want_grid = globe.satm.local(group, torch.float64)
     want_carry = place(globe.carry, group, torch.float64)
     assert_same(grid, want_grid)
@@ -137,9 +149,7 @@ def _on_rank(group, mesh, part):
     def watched_init(m):
         meshes.append(m.nCells)
         return init(m)
-    grid, carry, xch = adist.shard_atm_setup(
-        mesh, part, CFG, group, torch.float64, watched_init, DT,
-        perturb=perturb)
+    grid, carry, xch = set_up(mesh, part, group, watched_init)
     state = stepped(grid, carry, xch).state
     numpy = {k: v.numpy() for k, v in {**flat(grid, "grid."),
                                        **flat(carry, "carry.")}.items()
@@ -193,13 +203,15 @@ def test_gloo_ranks_set_up_their_own_shards(globe, tmp_path):
 
 
 def test_setup_reads_the_layout_it_is_given(globe):
-    """A layout the caller made (as a benchmark caches it) gives the same
-    shards as the one shard_atm_setup makes."""
+    """A layout read back from its pickle (as a benchmark caches it)
+    gives the same grid and carry as the one made afresh."""
     group = ShardGroup(P, torch.device("cpu"))
     lay = shard_layout(globe.mesh, globe.part, adist.ATM_HALO_DEPTH)
-    one = functools.partial(adist.shard_atm_setup, globe.mesh, globe.part,
-                            CFG, group, torch.float64, init, DT)
-    assert_same(one(layout=lay)[1], one()[1])
+    kept = pickle.loads(pickle.dumps(lay, protocol=pickle.HIGHEST_PROTOCOL))
+    got = set_up(globe.mesh, globe.part, group, layout=kept)
+    want = set_up(globe.mesh, globe.part, group, layout=lay)
+    assert_same(got[0], want[0])
+    assert_same(got[1], want[1])
 
 
 def test_init_blocks_change_no_bit(monkeypatch):
